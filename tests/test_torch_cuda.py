@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from tpurt_torch.bvh.paircluster import build_pair_accel
+from tpurt_torch.bvh.paircluster import build_pair_accel, \
+    build_pair_accel_two_level
 from tpurt_torch.kernels import tilewave as tw
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render import render_scene
 from tpurt_torch.render.intersectors import scene_meta
-from tpurt_torch.scene.procedural import bunny_standin
+from tpurt_torch.scene.procedural import bunny_standin, cornell_box, \
+    sponza_standin
 from tpurt_torch.utils.config import get_config
 
 
@@ -117,3 +119,85 @@ def test_render_on_cuda_matches_cpu(cuda_device):
     assert np.isfinite(a).all()
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
     assert stats["rays_traced"] > 0
+
+
+def _k1_modes_case(mode, device):
+    """Seeded rays, tables and sorted entries for one K1 mode: all-pairs
+    on the Cornell box, two-level on sponza_standin(8, 3), two-level with
+    supercluster entries on the full sponza_standin()."""
+    rng = np.random.default_rng(11)
+    n = 3 * tw.TILE
+    if mode == "allpairs":
+        scene = cornell_box(path_tracer=True)
+        accel = build_pair_accel(None, scene_meta(scene), scene=scene)
+    else:
+        scene = sponza_standin() if mode == "tl_sc" else sponza_standin(8, 3)
+        accel = build_pair_accel_two_level(None, scene_meta(scene),
+                                           scene=scene)
+    lo, hi = accel.cluster_lo.min(0), accel.cluster_hi.max(0)
+    org = lo + rng.uniform(size=(n, 3)) * (hi - lo)
+    d = lo + rng.uniform(size=(n, 3)) * (hi - lo) - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    diag = float(np.linalg.norm(hi - lo))
+    tmax = np.where(np.arange(n) % 9 == 0, -1.0,
+                    rng.uniform(0.05, 0.5, n) * diag)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    acc = accel.to(device)
+    org, dirn, tmax = t(org), t(d), t(tmax)
+    inv_d = tw._safe_inv(dirn)
+    tl = {}
+    if mode == "allpairs":
+        n_c = acc.cluster_lo.shape[0]
+        entry = torch.arange(n_c, dtype=torch.int32, device=device)
+        entry = entry[None].expand(3, n_c).contiguous()
+        counts = torch.full((3,), n_c, dtype=torch.int32, device=device)
+        return (org, dirn, inv_d, tmax, acc.tri_rows, entry, counts, 0.0), tl
+    tl = dict(pair_meta=acc.pair_meta, inv_xform=acc.inv_xform)
+    lo_e, hi_e = acc.cluster_lo, acc.cluster_hi
+    if mode == "tl_sc":
+        lo_e, hi_e = acc.sc_lo, acc.sc_hi
+        tl["sc_meta"] = acc.sc_meta
+    scale = tw.tn_scale_of(lo_e.cpu().numpy(), hi_e.cpu().numpy())
+    entry = tw.entries_cuda(org, inv_d, tmax, lo_e, hi_e, scale)
+    counts = (entry != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
+    entry = torch.sort(entry, dim=1).values
+    return (org, dirn, inv_d, tmax, acc.tri_rows, entry, counts, scale), tl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["allpairs", "tl", "tl_sc"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "lean_any"])
+def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
+    """K1's all-pairs, two-level and two-level + supercluster modes
+    against the plain version: slots, and instances where the slot
+    agrees; each mode counts under its own launch name."""
+    args, tl = _k1_modes_case(mode, cuda_device)
+    tw.reset_launch_counts()
+    k = tw.tileloop_cuda(*args, any_hit, **tl)
+    assert tw.launch_counts()[f"tileloop_{mode}"] == 1
+    p = tw.tileloop_plain(*args, any_hit, **tl)
+    assert len(k) == len(p) == (4 if mode == "allpairs" else 5)
+    live = args[3] >= 0
+    same = live & (k[3] == p[3])
+    assert int(same.sum()) >= 0.9999 * int(live.sum())
+    assert int((p[3][live] >= 0).sum()) > 100
+    rel = ((k[0] - p[0]).abs() / p[0].abs().clamp_min(1e-30))[same]
+    assert float(rel.max()) <= 1e-6
+    if len(k) == 5:
+        assert torch.equal(k[4][same], p[4][same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hello_triangle", "cornell"])
+def test_all_pairs_render_on_cuda_matches_cpu(cuda_device, name):
+    """The all-pairs presets at a small size: the card launches K1's
+    all-pairs mode and matches the CPU render within RMSE 1e-3."""
+    cfg = get_config(name, width=64, height=48, spp=4, spp_per_batch=4)
+    cpu, _ = render_scene(cfg, device="cpu")
+    tw.reset_launch_counts()
+    gpu, _ = render_scene(cfg, device=cuda_device)
+    assert tw.launch_counts()["tileloop_allpairs"] > 0
+    a = fb.resolve(gpu).cpu().numpy()
+    b = fb.resolve(cpu).numpy()
+    assert np.isfinite(a).all()
+    assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3

@@ -27,6 +27,11 @@ from tpurt_torch.render import render_scene
 from tpurt_torch.scene.procedural import bunny_standin, cornell_box
 from tpurt_torch.utils.config import get_config
 
+# One intra-op thread: the suite runs in several worker processes on a few
+# cores, where torch's default pool (one thread per core, spinning at each
+# barrier) slows these small-tensor tests by two orders of magnitude.
+torch.set_num_threads(1)
+
 RMSE_TOL = 1e-3
 SMALL = dict(width=64, height=48, spp=2, spp_per_batch=2, max_bounces=2,
              intersector="bvh_tile")
@@ -124,15 +129,46 @@ def test_unported_paths_raise():
     scene = bunny_standin(subdivisions=3)
     for kw in (dict(pipeline="mega"), dict(pipeline="wavefront"),
                dict(intersector="brute"), dict(n_tile_shards=2),
-               dict(n_sample_shards=2)):
+               dict(n_sample_shards=2), dict(pairs_per_tile=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_scene(get_config("bunny", **dict(SMALL, **kw)),
                          device="cpu", scene=scene)
-    # ≤ 8 clusters: the all-pairs mode is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_scene(get_config("cornell", width=32, height=32, spp=1,
-                                spp_per_batch=1), device="cpu",
-                     scene=cornell_box())
+    # ≤ 8 clusters take the all-pairs mode, which renders now
+    state, stats = render_scene(get_config("cornell", width=32, height=32,
+                                           spp=1, spp_per_batch=1),
+                                device="cpu", scene=cornell_box())
+    img = fb.resolve(state).numpy()
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.01 and stats["rays_shadow"] > 0
+
+
+@pytest.mark.parametrize("name", ["hello_triangle", "cornell", "bunny",
+                                  "cornell_pt", "sponza"])
+def test_every_ladder_preset_renders(name):
+    """Every preset of the ladder renders through render_scene (its own
+    scene at full geometry, a small frame), in the reference's mode:
+    flat shading for hello_triangle, the two-level accel for sponza."""
+    cfg = get_config(name, width=32, height=24, spp=1, spp_per_batch=1)
+    state, stats = render_scene(cfg, device="cpu")
+    img = fb.resolve(state).numpy()
+    assert img.shape == (24, 32, 3) and np.isfinite(img).all()
+    assert stats["rays_closest"] >= 32 * 24
+    if name == "hello_triangle":  # primary rays only, no light sampling
+        assert stats["rays_closest"] == 32 * 24 and stats["rays_shadow"] == 0
+
+
+def test_flat_shading_matches_reference():
+    """hello_triangle's flat shading (albedo at a hit, background on a
+    miss) equals the reference's staged render bit for bit."""
+    over = dict(width=40, height=30, spp=2, spp_per_batch=2,
+                intersector="bvh_tile")
+    state, _ = render_scene(get_config("hello_triangle", **over),
+                            device="cpu")
+    ref_state, _ = ref_render(ref_config("hello_triangle", pipeline="staged",
+                                         **over))
+    want = np.asarray(ref_fb.resolve(ref_state))
+    np.testing.assert_array_equal(fb.resolve(state).numpy(), want)
+    assert len(np.unique(want.reshape(-1, 3), axis=0)) >= 2
 
 
 def test_cuda_device_without_gpu_raises():

@@ -1,8 +1,14 @@
-"""Acceleration structures: the flat pair-cluster build (host numpy).
+"""Acceleration structures: the flat and two-level pair-cluster builds
+(host numpy).
 
-The reference's LBVH and two-level builds are not ported yet (ROADMAP
-§1 items 10 and 15)."""
+The reference's LBVH builds are not ported yet (ROADMAP §1 item 15)."""
 
-from tpurt_torch.bvh.paircluster import PairAccel, build_pair_accel
+from tpurt_torch.bvh.paircluster import (
+    PairAccel,
+    PairAccelTL,
+    build_pair_accel,
+    build_pair_accel_two_level,
+)
 
-__all__ = ["PairAccel", "build_pair_accel"]
+__all__ = ["PairAccel", "PairAccelTL", "build_pair_accel",
+           "build_pair_accel_two_level"]

@@ -1,5 +1,5 @@
-"""Pair-cluster acceleration structure — port of the flat build of
-``tpurt.bvh.paircluster`` (``build_pair_accel``).
+"""Pair-cluster acceleration structure — port of ``tpurt.bvh.paircluster``
+(``build_pair_accel`` and ``build_pair_accel_two_level``).
 
 Host numpy, byte-identical to the reference's build:
 
@@ -13,8 +13,12 @@ Host numpy, byte-identical to the reference's build:
     first three rows (the traversal kernel's box pre-tests);
   * per-slot world-space shading records (``shade_rows``);
   * the supercluster level (parent boxes over SC_SIZE consecutive
-    clusters), built but used only by the two-level/supercluster traversal
-    modes, which are not ported yet (ROADMAP §1 item 10).
+    clusters), which the traversal takes over per-cluster entries at
+    large cluster counts.
+
+The two-level build (``PairAccelTL``) keeps one object-space cluster
+table per mesh and one world box, row base and world→object transform
+per instance-cluster, for scenes that reuse meshes.
 """
 
 from __future__ import annotations
@@ -96,13 +100,18 @@ class PairAccel(NamedTuple):
 
     def to(self, device) -> "PairAccel":
         """The same tables as contiguous torch tensors on ``device``."""
-        import torch
+        return _tables_to(self, device)
 
-        return PairAccel(*(
-            None if a is None
-            else torch.from_numpy(np.array(a)).to(device)
-            for a in self
-        ))
+
+def _tables_to(tables, device):
+    """A NamedTuple of numpy tables → the same tuple type of contiguous
+    torch tensors on ``device`` (None fields stay None)."""
+    import torch
+
+    return type(tables)(*(
+        None if a is None else torch.from_numpy(np.array(a)).to(device)
+        for a in tables
+    ))
 
 
 def flatten_world_tris(ds, meta, scene=None):
@@ -452,6 +461,227 @@ def build_pair_accel(ds, meta, scene=None) -> PairAccel:
         prim_tri=tri_id,
         prim_inst=inst_id,
         shade_rows=shade_rows,
+        sc_lo=sc_lo,
+        sc_hi=sc_hi,
+        sc_meta=sc_meta,
+    )
+
+
+class PairAccelTL(NamedTuple):
+    """Two-level (TLAS/BLAS) variant of PairAccel: one shared object-space
+    triangle/shade table per mesh, plus per-instance-cluster entries that
+    carry a world AABB, the base row of the shared mesh cluster and the
+    world→object transform the traversal applies to the ray.
+
+    cluster_lo/hi: (IC, 3) world boxes per instance-cluster.
+    tri_rows: (R + SC_PAD_ROWS, 128) OBJECT-space packed rows, shared
+        across instances (row sub-boxes in lanes 120–125, cluster boxes in
+        lanes 126–127 of each cluster's first three rows).
+    pair_meta: (IC,) i32 — row_base | instance_id << INST_SHIFT.
+    inv_xform: (IC, 12) f32 — world→object 3×4, row-major.
+    prim_tri: mesh slot → global triangle id. prim_inst: all −1 (the
+        instance comes from the hit, not the slot).
+    shade_rows: object-space per-mesh-slot records (SHADE_LANES layout).
+    inst_table: (I, 24) f32 — [nrm_mat(9), det_sign, override_flag,
+        o_kind, o_albedo(3), o_emission(3), o_p0, o_p1, o_mid, pad(2)].
+    sc_lo/sc_hi/sc_meta: superclusters per instance (never spanning one:
+        children share one transform and contiguous rows).
+    """
+
+    cluster_lo: np.ndarray
+    cluster_hi: np.ndarray
+    tri_rows: np.ndarray
+    pair_meta: np.ndarray
+    inv_xform: np.ndarray
+    prim_tri: np.ndarray
+    prim_inst: np.ndarray
+    shade_rows: np.ndarray
+    inst_table: np.ndarray
+    sc_lo: Optional[np.ndarray] = None
+    sc_hi: Optional[np.ndarray] = None
+    sc_meta: Optional[np.ndarray] = None
+
+    @property
+    def n_clusters(self) -> int:
+        return self.cluster_lo.shape[0]
+
+    def to(self, device) -> "PairAccelTL":
+        """The same tables as contiguous torch tensors on ``device``."""
+        return _tables_to(self, device)
+
+
+INST_SHIFT = 20  # pair_meta bit split: row_base low 20 bits, instance above
+
+
+def build_pair_accel_two_level(ds, meta, scene=None) -> PairAccelTL:
+    """Object-space per-mesh clusters + per-instance cluster entries."""
+    tv0, tv1, tv2, inst_tf = _host_tris(ds, meta, scene)
+    (tn0, tn1, tn2, tmat, inst_nrm, inst_over, mk, ma, me, mp0,
+     mp1, tuv, mtex, mcut) = _host_shading(ds, meta, scene)
+
+    # --- per mesh (BLAS): Morton-sort object tris, uniform clusters
+    mesh_rows = []
+    mesh_cluster_base = []  # first cluster row of each mesh
+    mesh_cluster_boxes = []  # per mesh: (n_c, 2, 3) object-space boxes
+    slot_tri = []  # mesh slot → global tri id
+    n_rows_total = 0
+    for mesh_id, (start, count) in enumerate(meta.mesh_tri_ranges):
+        if count == 0:
+            mesh_cluster_base.append(n_rows_total)
+            mesh_cluster_boxes.append(np.zeros((0, 2, 3), np.float32))
+            continue
+        v0 = tv0[start:start + count]
+        v1 = tv1[start:start + count]
+        v2 = tv2[start:start + count]
+        centro = (v0 + v1 + v2) / 3.0
+        lo = np.minimum(np.minimum(v0, v1), v2).min(0)
+        hi = np.maximum(np.maximum(v0, v1), v2).max(0)
+        order = np.argsort(_morton(centro, lo, hi), kind="stable")
+        ko = cluster_order(v0[order], v1[order], v2[order])
+        order = order[ko]
+        v0, v1, v2 = v0[order], v1[order], v2[order]
+        n_c = -(-count // TRIS_PER_CLUSTER)
+        n_rows = n_c * ROWS_PER_CLUSTER
+        rows, pmin, pmax = pack_tri_rows(v0, v1, v2, n_rows)
+        # global mesh-slot ids: local slot + base
+        base_slot = sum(len(s) for s in slot_tri)
+        rec_slots = rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI]
+        valid = rec_slots >= 0
+        rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI] = np.where(
+            valid, rec_slots + base_slot, -1.0
+        )
+        row_lo = pmin.reshape(n_rows, TPR, 3).min(1)
+        row_hi = pmax.reshape(n_rows, TPR, 3).max(1)
+        rows[:, 120:123] = row_lo.astype(np.float32)
+        rows[:, 123:126] = row_hi.astype(np.float32)
+        clo = pmin.reshape(n_c, TRIS_PER_CLUSTER, 3).min(1)
+        chi = pmax.reshape(n_c, TRIS_PER_CLUSTER, 3).max(1)
+        _pack_cluster_box_lanes(rows, clo, chi)
+        mesh_rows.append(rows)
+        mesh_cluster_base.append(n_rows_total)
+        mesh_cluster_boxes.append(
+            np.stack([clo, chi], axis=1).astype(np.float32)
+        )
+        n_rows_total += n_rows
+        slot_tri.append((start + order).astype(np.int32))
+    tri_rows = (
+        np.concatenate(mesh_rows) if mesh_rows
+        else np.zeros((0, 128), np.float32)
+    )
+    prim_tri = (
+        np.concatenate(slot_tri) if slot_tri
+        else np.zeros(0, np.int32)
+    )
+    n_slots = prim_tri.shape[0]
+
+    # --- per-instance cluster entries (the TLAS leaves)
+    ic_lo, ic_hi, ic_meta, ic_xf = [], [], [], []
+    sc_lo_l, sc_hi_l, sc_meta_l = [], [], []
+    ic_base = 0  # running global instance-cluster index
+    for inst_id, mesh_id in enumerate(meta.inst_mesh):
+        boxes = mesh_cluster_boxes[mesh_id]
+        if boxes.shape[0] == 0:
+            continue
+        m = inst_tf[inst_id]  # (3, 4) object→world
+        a = m[:, :3]
+        t = m[:, 3]
+        # world box of each object box: transform the 8 corners
+        corners = np.stack(
+            [boxes[:, (i >> k) & 1, k] for i in range(8)
+             for k in range(3)], 0
+        ).T.reshape(-1, 8, 3)
+        wc = corners @ a.T + t
+        ic_lo.append(wc.min(1))
+        ic_hi.append(wc.max(1))
+        n_c = boxes.shape[0]
+        base_rows = (
+            mesh_cluster_base[mesh_id]
+            + np.arange(n_c, dtype=np.int64) * ROWS_PER_CLUSTER
+        )
+        if base_rows.max(initial=0) >= (1 << INST_SHIFT):
+            raise ValueError("row base exceeds the pair_meta encoding")
+        if inst_id >= (1 << (31 - INST_SHIFT)):
+            raise ValueError("instance id exceeds the pair_meta encoding")
+        ic_meta.append(
+            (base_rows | (inst_id << INST_SHIFT)).astype(np.int32)
+        )
+        ainv = np.linalg.inv(a)
+        xf = np.concatenate(
+            [ainv, (-ainv @ t)[:, None]], axis=1
+        ).astype(np.float32)  # world→object 3×4
+        ic_xf.append(np.tile(xf.reshape(1, 12), (n_c, 1)))
+        # superclusters per INSTANCE: children are consecutive
+        # instance-clusters of this instance, whose shared rows are
+        # contiguous and whose world→object transform is identical
+        s_lo, s_hi, s_meta = _supercluster_groups(
+            ic_lo[-1].astype(np.float32), ic_hi[-1].astype(np.float32),
+            base0=ic_base,
+        )
+        sc_lo_l.append(s_lo)
+        sc_hi_l.append(s_hi)
+        sc_meta_l.append(s_meta)
+        ic_base += n_c
+    cluster_lo = np.concatenate(ic_lo).astype(np.float32)
+    cluster_hi = np.concatenate(ic_hi).astype(np.float32)
+    pair_meta = np.concatenate(ic_meta)
+    inv_xform = np.concatenate(ic_xf)
+    sc_lo = np.concatenate(sc_lo_l).astype(np.float32)
+    sc_hi = np.concatenate(sc_hi_l).astype(np.float32)
+    sc_meta = np.concatenate(sc_meta_l)
+
+    # --- object-space shade records per mesh slot
+    gt = np.clip(prim_tri, 0, max(tmat.shape[0] - 1, 0))
+    n_geom_obj = np.cross(
+        tv1[gt] - tv0[gt], tv2[gt] - tv0[gt]
+    ).astype(np.float32)
+    mid = np.clip(tmat[gt], 0, mk.shape[0] - 1)
+    rec = np.zeros((n_slots, SHADE_LANES), np.float32)
+    rec[:, 0:3] = n_geom_obj
+    rec[:, 3:6] = tn0[gt]
+    rec[:, 6:9] = tn1[gt]
+    rec[:, 9:12] = tn2[gt]
+    rec[:, 12] = mk[mid]
+    rec[:, 13:16] = ma[mid]
+    rec[:, 16:19] = me[mid]
+    rec[:, 19] = mp0[mid]
+    rec[:, 20] = mp1[mid]
+    rec[:, 21] = mid.astype(np.float32)
+    rec[:, 22:24] = tuv[0][gt]
+    rec[:, 24:26] = tuv[1][gt]
+    rec[:, 26:28] = tuv[2][gt]
+    rec[:, 28] = mtex[mid]
+    rec[:, 29] = mcut[mid]
+
+    # --- per-instance normal matrix + material override table
+    n_inst = len(meta.inst_mesh)
+    it = np.zeros((n_inst, 24), np.float32)
+    for i in range(n_inst):
+        nm = inst_nrm[i]  # inv(A)^T
+        it[i, 0:9] = nm.reshape(-1)
+        it[i, 9] = np.sign(np.linalg.det(np.linalg.inv(nm)))
+        over = int(inst_over[i])
+        if over >= 0:
+            om = min(over, mk.shape[0] - 1)
+            it[i, 10] = 1.0
+            it[i, 11] = mk[om]
+            it[i, 12:15] = ma[om]
+            it[i, 15:18] = me[om]
+            it[i, 18] = mp0[om]
+            it[i, 19] = mp1[om]
+            it[i, 20] = float(om)
+    return PairAccelTL(
+        cluster_lo=cluster_lo,
+        cluster_hi=cluster_hi,
+        # supercluster copy overrun pad (see SC_PAD_ROWS)
+        tri_rows=np.concatenate(
+            [tri_rows, np.zeros((SC_PAD_ROWS, 128), np.float32)]
+        ),
+        pair_meta=pair_meta,
+        inv_xform=inv_xform,
+        prim_tri=prim_tri,
+        prim_inst=np.full(n_slots, -1, np.int32),
+        shade_rows=rec,
+        inst_table=it,
         sc_lo=sc_lo,
         sc_hi=sc_hi,
         sc_meta=sc_meta,

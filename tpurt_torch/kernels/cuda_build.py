@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``tpurt_torch/csrc``).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The build runs at first use, never at
-import, into ``tpurt_torch/build/`` under a name keyed by the sources'
-hash, so an edited source rebuilds and a stale library is never loaded.
+Each source compiles with its own nvcc process (all started together),
+then one link makes a shared library with a plain C interface, loaded
+with ctypes. The build runs at first use, never at import, into
+``tpurt_torch/build/`` under a name keyed by the sources' hash, so an
+edited source rebuilds and a stale library is never loaded.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``. No
 ``--use_fast_math``: the kernels keep IEEE division (``1/det``,
@@ -28,7 +29,7 @@ SOURCES = ("entries.cu", "tileloop.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -46,7 +47,8 @@ class KernelLibrary:
                                       ctypes.c_float, p, p]
         lib.tpurt_entries.restype = i
         lib.tpurt_tileloop.argtypes = [p, p, p, p, p, p, p, i, i,
-                                       ctypes.c_float, i, p, p, p, p, p]
+                                       ctypes.c_float, i, p, p, p,
+                                       p, p, p, p, p, p]
         lib.tpurt_tileloop.restype = i
 
 
@@ -63,6 +65,34 @@ def _nvcc() -> str:
         return path
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
                        "build tpurt_torch's kernels")
+
+
+def _build(srcs, out: str) -> str:
+    """Compile every source in its own nvcc process, all at once, then
+    link ``out``; returns the compilers' output."""
+    nvcc = _nvcc()
+    objs = [f"{out}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    log, failed = "", []
+    for s, proc in zip(srcs, procs):
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(os.path.basename(s))
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", out, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    return log
 
 
 def load() -> KernelLibrary:
@@ -82,14 +112,8 @@ def load() -> KernelLibrary:
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True,
-        )
+        log = _build(srcs, tmp)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, out)
     lib = KernelLibrary(ctypes.CDLL(out), out, log, seconds)
     _LOADED[key] = lib

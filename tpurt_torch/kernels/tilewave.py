@@ -1,4 +1,4 @@
-"""Tile-wavefront traversal — port of the flat entry-row path of
+"""Tile-wavefront traversal — port of the entry-row path of
 ``tpurt.kernels.tilewave`` (``make_tile_intersector``).
 
 A wave of rays is cut into 1024-ray tiles. Each tile gets a front-to-back
@@ -22,10 +22,14 @@ Both kernels are hand-written CUDA (``tpurt_torch/csrc``) launched by
 are their plain PyTorch versions. The dispatching wrappers take the plain
 version only for CPU tensors: a CUDA tensor launches the kernel or raises.
 
-Not ported yet (ROADMAP §1): the all-pairs segment mode for scenes with at
-most 8 clusters (item 10a), the two-level and supercluster modes (item
-10), the exact-mask kernel of the budget path (K3, item 10b) and the
-grid-over-pairs kernel (K4, item 15).
+K1's modes, as the reference picks them: entry rows per cluster (flat or
+two-level), entry rows per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS
+(sponza), and the all-pairs row for scenes of at most 8 clusters (the
+hello and Cornell presets). A two-level accel transforms the ray into
+each instance-cluster's object space inside K1.
+
+Not ported yet (ROADMAP §1): the exact-mask kernel of the budget path
+(K3, item 10b) and the grid-over-pairs kernel (K4, item 15).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER
+from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER, SC_SIZE
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG, DEAD_KEY, EPS_DENOM, \
     _expand_bits7, _quantize
@@ -45,9 +49,13 @@ TILE = 1024  # rays per tile (= threads per traversal block)
 LANES = 128  # entry-slab columns pad to a multiple of this
 INT32_MAX = 2 ** 31 - 1
 TN_LEVELS = 32766  # largest quantized entry distance
-# scenes with at most this many clusters take the reference's all-pairs
-# segment mode, which is not ported yet
+# scenes with at most this many clusters take the all-pairs row (every
+# tile walks every cluster; no sort, no entry build)
 ALLPAIRS_MAX_CLUSTERS = 8
+# accels with superclusters and at least this many clusters build their
+# entry rows over the superboxes (the reference's auto rule; its second
+# trigger, a TPU VMEM budget, has no counterpart in device memory)
+SC_AUTO_MIN_CLUSTERS = 2000
 
 
 def _padded_lanes(n_clusters: int) -> int:
@@ -271,6 +279,22 @@ def _slab_pass(o, iv, lo, hi, far):
     return tn <= tf
 
 
+def _to_object(o, d, m):
+    """World ray → object space of a (..., 12) world→object 3×4 matrix,
+    in the kernel's term order (m0·x + m1·y + m2·z + m3, left to right).
+    d is not renormalized, so t stays in world units."""
+    def row(k, x, y, z):
+        return m[..., 4 * k] * x + m[..., 4 * k + 1] * y + \
+            m[..., 4 * k + 2] * z
+
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    no = torch.stack([row(k, ox, oy, oz) + m[..., 4 * k + 3]
+                      for k in range(3)], dim=-1)
+    nd = torch.stack([row(k, dx, dy, dz) for k in range(3)], dim=-1)
+    return no, nd
+
+
 def _row_tests(rows, o, d, window, lean):
     """12 Möller–Trumbore tests of each gathered row (K, 128) against its
     ray (K, 3), in the kernel's op order. Closest: (t, u, v, slot, ok)
@@ -311,7 +335,8 @@ def _row_tests(rows, o, d, window, lean):
 
 
 def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
-                   scale: float, any_hit: bool):
+                   scale: float, any_hit: bool, pair_meta=None,
+                   inv_xform=None, sc_meta=None):
     """Plain PyTorch version of the traversal loop.
 
     Per ray, every triangle of every cluster in its tile's live entries is
@@ -321,79 +346,125 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
     variant ORs the division-free window test. The far break and the box
     tests only prune, so this version replaces them with conservative
     per-ray box tests (``_slab_pass``) and ignores ``scale``.
-    Returns (bt, bu, bv, bs) per ray, as the kernel does.
+
+    ``pair_meta``/``inv_xform`` (two-level accel): a cluster's rows start
+    at ``pair_meta[c] & 0xFFFFF`` and each (ray, cluster) pair is tested
+    in the cluster's object space (box tests included); a closest win
+    records the instance ``pair_meta[c] >> 20``. ``sc_meta``: entries are
+    superclusters, each expanded into its ``v >> 16`` consecutive
+    children from ``v & 0xFFFF``, with the tie key
+    ((entry·8 + child)·8 + row)·12 + lane.
+    Returns (bt, bu, bv, bs) per ray, plus bi (instance as f32, −1 where
+    none) when ``pair_meta`` is given, as the kernel does.
     """
     del scale
     dev = org.device
     n = org.shape[0]
     n_tiles = entries.shape[0]
+    two_level = pair_meta is not None
+    kids = SC_SIZE if sc_meta is not None else 1
     alive = tmax >= 0.0
     bt = torch.where(alive, tmax, -1.0)
     bu = torch.zeros(n, dtype=torch.float32, device=dev)
     bv = torch.zeros_like(bu)
     bs = torch.full_like(bu, -1.0)
+    bi = torch.full_like(bu, -1.0) if two_level else None
     best_k = torch.full((n,), 2 ** 62, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
-    clusters = tri_rows.reshape(-1, ROWS_PER_CLUSTER, 128)
+
+    def result():
+        if any_hit:
+            out = (torch.where(occ, -1.0, bt), bu, bv,
+                   torch.where(occ, 0.0, bs))
+        else:
+            out = (bt, bu, bv, bs)
+        return out + (bi,) if two_level else out
+
+    blocks = tri_rows.reshape(-1, ROWS_PER_CLUSTER, 128)
     # the boxes the kernel reads: cluster AABB in lanes 126–127 of rows
-    # 0–2, row sub-boxes in lanes 120–125
-    c_lo = torch.stack([clusters[:, 0, 126], clusters[:, 0, 127],
-                        clusters[:, 1, 126]], dim=-1)
-    c_hi = torch.stack([clusters[:, 1, 127], clusters[:, 2, 126],
-                        clusters[:, 2, 127]], dim=-1)
-    row_box = clusters[..., 120:126].contiguous()  # (C, 8, 6)
+    # 0–2, row sub-boxes in lanes 120–125 (object space when two-level)
+    b_lo = torch.stack([blocks[:, 0, 126], blocks[:, 0, 127],
+                        blocks[:, 1, 126]], dim=-1)
+    b_hi = torch.stack([blocks[:, 1, 127], blocks[:, 2, 126],
+                        blocks[:, 2, 127]], dim=-1)
+    row_box = blocks[..., 120:126].contiguous()  # (blocks, 8, 6)
     p_all = int(counts.max()) if n_tiles else 0
     if p_all == 0:
-        return bt, bu, bv, bs
-    # chunk tiles so the (tiles, TILE, entries) slab temporaries and the
+        return result()
+    n_units = p_all * kids  # unit = entry · kids + child
+    # chunk tiles so the (tiles, TILE, units) slab temporaries and the
     # gathered candidate rows stay bounded
     budget = 1 << (26 if dev.type == "cuda" else 22)
-    tiles_per_chunk = max(1, budget // (TILE * p_all))
+    tiles_per_chunk = max(1, budget // (TILE * n_units))
     rows_per_chunk = budget // 128
     lanes = torch.arange(p_all, device=dev)
+    child = torch.arange(kids, device=dev)
+    meta = pair_meta.to(torch.int64) if two_level else None
     for a in range(0, n_tiles, tiles_per_chunk):
         b = min(a + tiles_per_chunk, n_tiles)
         ent = entries[a:b, :p_all].to(torch.int64)
         live_e = lanes[None, :] < counts[a:b, None]
-        cl = torch.where(live_e, ent & 0xFFFF, 0)  # (Tc, P)
+        eid = torch.where(live_e, ent & 0xFFFF, 0)  # (Tc, P)
+        if sc_meta is not None:
+            mv = sc_meta[eid].to(torch.int64)
+            first = mv & 0xFFFF
+            live_u = live_e[..., None] & (child < (mv >> 16)[..., None])
+            cl = torch.where(live_u, first[..., None] + child, 0)
+            xcl = first[..., None].expand_as(cl)  # the transform's cluster
+            live_u, cl, xcl = (x.reshape(b - a, n_units)
+                               for x in (live_u, cl, xcl))
+        else:
+            live_u, cl, xcl = live_e, eid, eid
+        if two_level:
+            blk = (meta[cl] & 0xFFFFF) // ROWS_PER_CLUSTER
+        else:
+            blk = cl
         ray0 = a * TILE
         o = org[ray0:b * TILE].reshape(b - a, TILE, 1, 3)
+        d = dirn[ray0:b * TILE].reshape(b - a, TILE, 1, 3)
         iv = inv_d[ray0:b * TILE].reshape(b - a, TILE, 1, 3)
         tm = tmax[ray0:b * TILE].reshape(b - a, TILE, 1)
-        pair = (_slab_pass(o, iv, c_lo[cl][:, None], c_hi[cl][:, None], tm)
-                & (tm >= 0.0) & live_e[:, None, :])
-        ti, ri, pi = torch.nonzero(pair, as_tuple=True)
+        if two_level:
+            o, d = _to_object(o, d, inv_xform[xcl][:, None])
+            iv = _safe_inv(d)
+        pair = (_slab_pass(o, iv, b_lo[blk][:, None], b_hi[blk][:, None],
+                           tm)
+                & (tm >= 0.0) & live_u[:, None, :])
+        ti, ri, ui = torch.nonzero(pair, as_tuple=True)
         ray = ray0 + ti * TILE + ri  # global ray ids of the pairs
-        pc = cl[ti, pi]
+        pc = blk[ti, ui]
+        po, pd = org[ray], dirn[ray]
+        if two_level:
+            px = xcl[ti, ui]
+            po, pd = _to_object(po, pd, inv_xform[px])
+            inst_f = (meta[px] >> 20).to(torch.float32)
         rb = row_box[pc]  # (M, 8, 6)
-        rpass = _slab_pass(org[ray][:, None], inv_d[ray][:, None],
+        rpass = _slab_pass(po[:, None], _safe_inv(pd)[:, None],
                            rb[..., 0:3], rb[..., 3:6], tmax[ray][:, None])
         mi, row = torch.nonzero(rpass, as_tuple=True)
         for c0 in range(0, mi.shape[0], rows_per_chunk):
             m = mi[c0:c0 + rows_per_chunk]
             rr = row[c0:c0 + rows_per_chunk]
             rg = ray[m]
-            rows = clusters[pc[m], rr]  # (K, 128)
+            rows = blocks[pc[m], rr]  # (K, 128)
             if any_hit:
-                hit = _row_tests(rows, org[rg], dirn[rg], tmax[rg], True)
+                hit = _row_tests(rows, po[m], pd[m], tmax[rg], True)
                 occ[rg[hit.any(dim=1)]] = True
                 continue
-            t, u, v, sl, ok = _row_tests(rows, org[rg], dirn[rg], None,
-                                         False)
-            key = ((pi[m] * 96 + rr * 12)[:, None]
+            t, u, v, sl, ok = _row_tests(rows, po[m], pd[m], None, False)
+            key = ((ui[m] * 96 + rr * 12)[:, None]
                    + torch.arange(12, device=dev)[None, :])
             ok = ok & (t < tmax[rg][:, None])
             k_i, j_i = torch.nonzero(ok, as_tuple=True)
-            _merge_closest(rg[k_i], t[k_i, j_i], key[k_i, j_i],
-                           u[k_i, j_i], v[k_i, j_i], sl[k_i, j_i],
-                           bt, best_k, bu, bv, bs)
-    if any_hit:
-        return (torch.where(occ, -1.0, bt), bu, bv,
-                torch.where(occ, 0.0, bs))
-    return bt, bu, bv, bs
+            _merge_closest(
+                rg[k_i], t[k_i, j_i], key[k_i, j_i], u[k_i, j_i],
+                v[k_i, j_i], sl[k_i, j_i], bt, best_k, bu, bv, bs,
+                inst_f[m][k_i] if two_level else None, bi)
+    return result()
 
 
-def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs):
+def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs,
+                   inst=None, bi=None):
     """Fold candidates into the per-ray best in place: smaller t wins,
     equal t goes to the smaller (entry, row, lane) key."""
     if rg.numel() == 0:
@@ -414,13 +485,31 @@ def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs):
     bu[rw] = u[win][better]
     bv[rw] = v[win][better]
     bs[rw] = sl[win][better]
+    if inst is not None:
+        bi[rw] = inst[win][better]
+
+
+def _variant(pair_meta, sc_meta, scale: float) -> str:
+    """Launch-count name of a K1 mode: scale 0 is the all-pairs row (its
+    entries carry no distance), sc_meta the supercluster entries,
+    pair_meta the two-level accel."""
+    name = "tileloop"
+    if pair_meta is not None:
+        name += "_tl"
+    if sc_meta is not None:
+        name += "_sc"
+    elif scale == 0.0:
+        name += "_allpairs"
+    return name
 
 
 def tileloop_cuda(org, dirn, inv_d, tmax, tri_rows, entries, counts,
-                  scale: float, any_hit: bool):
+                  scale: float, any_hit: bool, pair_meta=None,
+                  inv_xform=None, sc_meta=None):
     """Launch the CUDA traversal kernel (csrc/tileloop.cu) on the current
-    stream: closest-hit, or the lean any-hit variant when ``any_hit``.
-    Returns (bt, bu, bv, bs) per ray."""
+    stream: closest-hit, or the lean any-hit variant when ``any_hit``;
+    two-level with ``pair_meta``/``inv_xform``, supercluster entries with
+    ``sc_meta``. Returns (bt, bu, bv, bs[, bi]) per ray."""
     from tpurt_torch.kernels import cuda_build
 
     dev = org.device
@@ -431,45 +520,68 @@ def tileloop_cuda(org, dirn, inv_d, tmax, tri_rows, entries, counts,
         raise ValueError(f"ray count {n} is not a multiple of {TILE}")
     n_tiles = n // TILE
     cp = entries.shape[1]
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     _check("org", org, f32, (n, 3), dev)
     _check("dirn", dirn, f32, (n, 3), dev)
     _check("inv_d", inv_d, f32, (n, 3), dev)
     _check("tmax", tmax, f32, (n,), dev)
     _check("tri_rows", tri_rows, f32, (tri_rows.shape[0], 128), dev)
-    _check("entries", entries, torch.int32, (n_tiles, cp), dev)
-    _check("counts", counts, torch.int32, (n_tiles,), dev)
+    _check("entries", entries, i32, (n_tiles, cp), dev)
+    _check("counts", counts, i32, (n_tiles,), dev)
     if tri_rows.shape[0] % ROWS_PER_CLUSTER:
         raise ValueError("tri_rows must hold whole clusters of 8 rows")
-    out = torch.empty((4, n), dtype=f32, device=dev)
+    two_level = pair_meta is not None
+    if two_level != (inv_xform is not None):
+        raise ValueError("pair_meta and inv_xform come together")
+    if two_level:
+        _check("pair_meta", pair_meta, i32, (pair_meta.shape[0],), dev)
+        _check("inv_xform", inv_xform, f32, (pair_meta.shape[0], 12), dev)
+    if sc_meta is not None:
+        _check("sc_meta", sc_meta, i32, (sc_meta.shape[0],), dev)
+    out = torch.empty((5 if two_level else 4, n), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = cuda_build.load().lib
     err = lib.tpurt_tileloop(
         org.data_ptr(), dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
         tri_rows.data_ptr(), entries.data_ptr(), counts.data_ptr(),
-        n_tiles, cp, scale, int(bool(any_hit)), out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-        _stream(dev))
+        n_tiles, cp, scale, int(bool(any_hit)), ptr(pair_meta),
+        ptr(inv_xform), ptr(sc_meta), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), out[3].data_ptr(),
+        out[4].data_ptr() if two_level else None, _stream(dev))
     if err:
         raise RuntimeError(f"tileloop kernel launch failed: cudaError {err}")
     tileloop_cuda.launches += 1
-    return out[0], out[1], out[2], out[3]
+    name = _variant(pair_meta, sc_meta, scale)
+    tileloop_cuda.variant_launches[name] = \
+        tileloop_cuda.variant_launches.get(name, 0) + 1
+    return tuple(out)
 
 
 tileloop_cuda.launches = 0
+tileloop_cuda.variant_launches = {}
 
 
 def tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts,
-             scale: float, any_hit: bool):
+             scale: float, any_hit: bool, pair_meta=None, inv_xform=None,
+             sc_meta=None):
     """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     fn = tileloop_plain if org.device.type == "cpu" else tileloop_cuda
     return fn(org, dirn, inv_d, tmax, tri_rows, entries, counts, scale,
-              any_hit)
+              any_hit, pair_meta=pair_meta, inv_xform=inv_xform,
+              sc_meta=sc_meta)
 
 
 def reset_launch_counts() -> None:
     entries_cuda.launches = 0
     tileloop_cuda.launches = 0
+    tileloop_cuda.variant_launches = {}
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset: K2, and K1 by mode."""
+    return {"entries": entries_cuda.launches,
+            **tileloop_cuda.variant_launches}
 
 
 # --------------------------------------------------------------------------
@@ -492,10 +604,12 @@ def _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag):
 
 
 def _trace_entry_rows(org, dirn, tmv, lo, hi, tri_rows, scale, *,
-                      any_hit, exact):
-    """One wave through the entry-row path: entry slab (exact K2 build on
-    sorted waves, interval frustum mask on primary waves), per-row sort,
-    traversal. Returns (bt, bu, bv, bs, n_pairs)."""
+                      any_hit, exact, tl):
+    """One wave through the entry-row path: entry slab over the boxes
+    lo/hi (exact K2 build on sorted waves, interval frustum mask on
+    primary waves), per-row sort, traversal. ``tl``: the two-level and
+    supercluster tables for K1. Returns ((bt, bu, bv, bs[, bi]),
+    n_pairs)."""
     n_tiles = org.shape[0] // TILE
     inv_d = _safe_inv(dirn)
     if exact:
@@ -507,47 +621,78 @@ def _trace_entry_rows(org, dirn, tmv, lo, hi, tri_rows, scale, *,
         counts = mask.sum(dim=1, dtype=torch.int32)
         entry = _pack_entries(mask, tn_lower, scale)
     entry = torch.sort(entry, dim=1).values  # per-row front-to-back
-    bt, bu, bv, bs = tileloop(org, dirn, inv_d, tmv, tri_rows, entry,
-                              counts, scale, any_hit)
-    return bt, bu, bv, bs, counts.sum(dtype=torch.float32)
+    out = tileloop(org, dirn, inv_d, tmv, tri_rows, entry, counts, scale,
+                   any_hit, **tl)
+    return out, counts.sum(dtype=torch.float32)
+
+
+def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
+    """One wave of a scene with at most ALLPAIRS_MAX_CLUSTERS clusters:
+    every tile walks every cluster in index order. The entry row is
+    [0, 1, …, C−1] (no distance bits) and the scale 0, so the far break
+    fires only once every lane is dead or occluded. Returns
+    ((bt, bu, bv, bs[, bi]), n_pairs)."""
+    n_tiles = org.shape[0] // TILE
+    dev = org.device
+    entry = torch.arange(n_clusters, dtype=torch.int32, device=dev)
+    entry = entry[None].expand(n_tiles, n_clusters).contiguous()
+    counts = torch.full((n_tiles,), n_clusters, dtype=torch.int32,
+                        device=dev)
+    out = tileloop(org, dirn, _safe_inv(dirn), tmv, tri_rows, entry, counts,
+                   0.0, any_hit, **tl)
+    return out, torch.tensor(float(n_tiles * n_clusters), device=dev)
 
 
 def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
                           shadow_ray_sort: str = "octant",
                           lean: bool = False, live_cap: int = 0,
                           shadow_live_cap: int = 0):
-    """Closest/any-hit pair over the flat pair-cluster accel (same
-    interface as ``make_brute_force``); ``accel`` is a PairAccel of
+    """Closest/any-hit pair over a pair-cluster accel (same interface as
+    ``make_brute_force``); ``accel`` is a PairAccel or PairAccelTL of
     tensors on the rays' device.
+
+    Modes, as the reference picks them: at most ALLPAIRS_MAX_CLUSTERS
+    clusters take the all-pairs row (no sort, no restore, no live
+    truncation); an accel with superclusters and at least
+    SC_AUTO_MIN_CLUSTERS clusters builds its entry rows over the
+    superboxes and K1 expands each into its children; otherwise entries
+    are per cluster. A two-level accel (``pair_meta``) runs K1 in object
+    space per instance-cluster and reports the hit instance.
 
     ``ray_sort``/``shadow_ray_sort``: "none" (keep the caller's order,
     interval-frustum entries — primary waves) or "octant" (coherence sort
-    + exact entries — bounce and shadow waves). ``lean``: Hit.tri/inst
-    come back as −1 (renderers shade through ``Hit.slot``).
+    + exact entries — bounce and shadow waves). ``lean``: Hit.tri comes
+    back as −1 (and Hit.inst too on a flat accel; renderers shade through
+    ``Hit.slot`` and, two-level, ``Hit.inst``).
     ``live_cap``/``shadow_live_cap``: live-wave truncation of the sorted
     closest/shadow waves (rays); alive rays past the cap are counted in
     stats[2] so the caller can re-render uncapped."""
     del ds
-    n_clusters = int(accel.cluster_lo.shape[0])
-    if n_clusters <= ALLPAIRS_MAX_CLUSTERS:
-        raise NotImplementedError(
-            f"{n_clusters} clusters: the all-pairs segment mode of the "
-            "traversal kernel is not ported yet (ROADMAP §1 item 10a)")
-    if getattr(accel, "pair_meta", None) is not None:
-        raise NotImplementedError(
-            "two-level accel: not ported yet (ROADMAP §1 item 10)")
     for s in (ray_sort, shadow_ray_sort):
         if s not in ("none", "octant"):
             raise NotImplementedError(
                 f"ray sort {s!r}: only 'none' and 'octant' are ported")
+    n_clusters = int(accel.cluster_lo.shape[0])
     lo = accel.cluster_lo
     hi = accel.cluster_hi
     tri_rows = accel.tri_rows
     prim_tri = accel.prim_tri
     prim_inst = accel.prim_inst
     n_prims = prim_tri.shape[0]
-    lo_h, hi_h = lo.cpu().numpy(), hi.cpu().numpy()
-    scale = tn_scale_of(lo_h, hi_h)
+    pair_meta = getattr(accel, "pair_meta", None)
+    two_level = pair_meta is not None
+    tl = dict(pair_meta=pair_meta,
+              inv_xform=getattr(accel, "inv_xform", None))
+    all_pairs = n_clusters <= ALLPAIRS_MAX_CLUSTERS
+    sc_active = (not all_pairs and accel.sc_meta is not None
+                 and n_clusters >= SC_AUTO_MIN_CLUSTERS)
+    if sc_active:
+        # entry rows over the superboxes; K1 expands the children
+        e_lo, e_hi = accel.sc_lo, accel.sc_hi
+        tl["sc_meta"] = accel.sc_meta
+    else:
+        e_lo, e_hi = lo, hi
+    scale = tn_scale_of(e_lo.cpu().numpy(), e_hi.cpu().numpy())
     lo_all = lo.amin(dim=0)
     hi_all = hi.amax(dim=0)
     ext = hi_all - lo_all
@@ -567,12 +712,19 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
             tmv = torch.cat([tmv, torch.full((pad,), -1.0, device=dev)])
         n_tiles = (n + pad) // TILE
         tmv = _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag)
+        live_over = torch.zeros((), dtype=torch.float32, device=dev)
+        if all_pairs:
+            out, n_pairs = _trace_all_pairs(org, dirn, tmv, tri_rows,
+                                            n_clusters, any_hit=any_hit,
+                                            tl=tl)
+            stats = torch.stack([n_pairs, torch.zeros_like(n_pairs),
+                                 live_over])
+            return tuple(f[:n] for f in out), stats
         perm = None
         if sort == "octant":
             keys = _octant_sort_keys(org, dirn, tmv, lo_all, hi_all)
             perm = torch.sort(keys, stable=True).indices
             org, dirn, tmv = org[perm], dirn[perm], tmv[perm]
-        live_over = torch.zeros((), dtype=torch.float32, device=dev)
         n_full = n_tiles * TILE
         if live_trunc and perm is not None:
             kt = min(n_tiles, -(-int(live_trunc) // TILE))
@@ -580,40 +732,42 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
                 live_over = (tmv[kt * TILE:] >= 0.0).sum(dtype=torch.float32)
                 org, dirn, tmv = (org[:kt * TILE], dirn[:kt * TILE],
                                   tmv[:kt * TILE])
-        bt, bu, bv, bs, n_pairs = _trace_entry_rows(
-            org, dirn, tmv, lo, hi, tri_rows, scale, any_hit=any_hit,
-            exact=perm is not None)
-        if bt.shape[0] < n_full:
+        out, n_pairs = _trace_entry_rows(
+            org, dirn, tmv, e_lo, e_hi, tri_rows, scale, any_hit=any_hit,
+            exact=perm is not None, tl=tl)
+        if out[0].shape[0] < n_full:
             # truncated wave: the dropped tail gets the kernel's dead-lane
-            # values before the un-permute
-            tail = n_full - bt.shape[0]
-            bt = torch.cat([bt, torch.full((tail,), -1.0, device=dev)])
-            bu = torch.cat([bu, torch.zeros(tail, device=dev)])
-            bv = torch.cat([bv, torch.zeros(tail, device=dev)])
-            bs = torch.cat([bs, torch.full((tail,), -1.0, device=dev)])
+            # values (bt −1, bu bv 0, bs −1, bi −1) before the un-permute
+            tail = n_full - out[0].shape[0]
+            out = tuple(
+                torch.cat([f, torch.full((tail,), 0.0 if k in (1, 2)
+                                         else -1.0, device=dev)])
+                for k, f in enumerate(out))
         if perm is not None:
-            fields = (bs,) if any_hit else (bt, bu, bv, bs)
-            restored = []
-            for f in fields:
-                r = torch.empty_like(f)
-                r[perm] = f
-                restored.append(r)
-            if any_hit:
-                (bs,) = restored
-            else:
-                bt, bu, bv, bs = restored
+            # un-permute only what the caller reads: any-hit waves only bs
+            keep = (3,) if any_hit else range(len(out))
+            restored = list(out)
+            for k in keep:
+                r = torch.empty_like(out[k])
+                r[perm] = out[k]
+                restored[k] = r
+            out = tuple(restored)
         stats = torch.stack([n_pairs, torch.zeros_like(n_pairs), live_over])
-        return bt[:n], bu[:n], bv[:n], bs[:n], stats
+        return tuple(f[:n] for f in out), stats
 
-    def _hit_from(bt, bu, bv, bs):
+    def _hit_from(bt, bu, bv, bs, bi=None):
         slot = bs.to(torch.int32)
         valid = slot >= 0
         slot_c = torch.clamp(slot, 0, n_prims - 1)
-        if lean:
-            tri = torch.full_like(slot_c, -1)
+        tri = (torch.full_like(slot_c, -1) if lean
+               else prim_tri[slot_c.long()])
+        if two_level:
+            # the instance comes from K1's fifth output (the slot is a
+            # shared mesh slot): the two-level resolver needs both
+            inst = torch.where(valid, bi.to(torch.int32), -1)
+        elif lean:
             inst = torch.full_like(slot_c, -1)
         else:
-            tri = prim_tri[slot_c.long()]
             inst = prim_inst[slot_c.long()]
         return Hit(
             t=torch.where(valid, bt, math.inf), u=bu, v=bv, tri=tri,
@@ -623,15 +777,14 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
 
     def closest_with_stats(org, dirn, t_min, t_max):
         del t_min
-        bt, bu, bv, bs, stats = _run(org, dirn, t_max, live_trunc=live_cap)
-        return _hit_from(bt, bu, bv, bs), stats
+        out, stats = _run(org, dirn, t_max, live_trunc=live_cap)
+        return _hit_from(*out), stats
 
     def any_hit_with_stats(org, dirn, t_min, t_max):
         del t_min
-        _, _, _, bs, stats = _run(org, dirn, t_max, any_hit=True,
-                                  sort=shadow_ray_sort,
-                                  live_trunc=shadow_live_cap)
-        return bs >= 0.0, stats
+        out, stats = _run(org, dirn, t_max, any_hit=True,
+                          sort=shadow_ray_sort, live_trunc=shadow_live_cap)
+        return out[3] >= 0.0, stats
 
     def closest(org, dirn, t_min, t_max) -> Hit:
         return closest_with_stats(org, dirn, t_min, t_max)[0]
@@ -642,4 +795,3 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
     closest.with_stats = closest_with_stats
     any_hit.with_stats = any_hit_with_stats
     return closest, any_hit
-

@@ -6,10 +6,11 @@ BLINN_PHONG (param0 = shininess, param1 = specular strength), MIRROR
 (param0 = fuzz), DIELECTRIC (param0 = ior); any material may add
 ``emission``.
 
-Hit attributes come from the baked world-space shade records of the flat
-pair-cluster accel (one row gather per hit). Base-color textures, alpha
-cutout and the two-level record path are not ported yet (ROADMAP §1
-items 10 and 11).
+Hit attributes come from the baked shade records of the pair-cluster
+accel (one row gather per hit): world-space records for the flat accel,
+object-space records plus a per-instance table for the two-level accel.
+Base-color textures and alpha cutout are not ported yet (ROADMAP §1
+item 11).
 """
 
 from __future__ import annotations
@@ -79,20 +80,67 @@ def resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot) -> HitAttrs:
     )
 
 
+def _mat3_vec(m, x):
+    """(N, 3, 3) · (N, 3), summed left to right."""
+    return (m[:, :, 0] * x[:, 0:1] + m[:, :, 1] * x[:, 1:2]
+            + m[:, :, 2] * x[:, 2:3])
+
+
+def resolve_hit_packed_tl(shade_rows, inst_table, org, dirn, t, u, v, slot,
+                          inst) -> HitAttrs:
+    """Two-level twin of resolve_hit_packed (PairAccelTL): the shade
+    record is object space and shared across instances; the hit's
+    instance selects a normal matrix and an optional material override
+    from the (I, 24) instance table (one row gather per hit)."""
+    rec = shade_rows[torch.clamp_min(slot, 0).long()]  # (N, SHADE_LANES)
+    i_c = torch.clamp(inst, 0, inst_table.shape[0] - 1).long()
+    feats = inst_table[i_c]  # (N, 24)
+    nm = feats[:, 0:9].reshape(-1, 3, 3)
+    det_sign = feats[:, 9:10]
+    w = 1.0 - u - v
+    n_geom = normalize(_mat3_vec(nm, rec[:, 0:3]) * det_sign)
+    ns_obj = (w[:, None] * rec[:, 3:6] + u[:, None] * rec[:, 6:9]
+              + v[:, None] * rec[:, 9:12])
+    n_shade = normalize(_mat3_vec(nm, ns_obj))
+    pos = org + t[:, None] * dirn
+    front_face = dot(n_geom, dirn) < 0.0
+    n_geom = _where3(front_face, n_geom, -n_geom)
+    n_shade = _where3(dot(n_shade, n_geom) >= 0.0, n_shade, -n_shade)
+    over = feats[:, 10:11] > 0.5
+    sel = lambda a, b: torch.where(over, a, b)
+    return HitAttrs(
+        pos=pos,
+        n_geom=n_geom,
+        n_shade=n_shade,
+        front_face=front_face,
+        mat_id=sel(feats[:, 20:21], rec[:, 21:22])[:, 0].to(torch.int32),
+        kind=sel(feats[:, 11:12], rec[:, 12:13])[:, 0].to(torch.int32),
+        albedo=sel(feats[:, 12:15], rec[:, 13:16]),
+        emission=sel(feats[:, 15:18], rec[:, 16:19]),
+        param0=sel(feats[:, 18:19], rec[:, 19:20])[:, 0],
+        param1=sel(feats[:, 19:20], rec[:, 20:21])[:, 0],
+    )
+
+
 def make_resolver(ds, accel):
-    """The hit-attribute resolver for a flat pair-cluster accel."""
-    shade_rows = getattr(accel, "shade_rows", None)
-    if shade_rows is None or getattr(accel, "inst_table", None) is not None:
-        raise NotImplementedError(
-            "only the flat packed shade-record resolver is ported "
-            "(ROADMAP §1 item 10: two-level records)")
+    """The hit-attribute resolver for a pair-cluster accel: the two-level
+    path (object-space records + instance table) for a PairAccelTL, the
+    world-space record path otherwise."""
+    shade_rows = accel.shade_rows
+    inst_table = getattr(accel, "inst_table", None)
     if ds.tex_data.shape[0] > 1:
         raise NotImplementedError(
             "base-color textures are not ported yet (ROADMAP §1 item 11)")
 
-    def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
-        del tri, inst
-        return resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot)
+    if inst_table is not None:
+        def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
+            del tri
+            return resolve_hit_packed_tl(shade_rows, inst_table, org, dirn,
+                                         t, u, v, slot, inst)
+    else:
+        def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
+            del tri, inst
+            return resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot)
 
     return resolve
 

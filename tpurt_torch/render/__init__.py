@@ -45,25 +45,23 @@ def _check_supported(config: RenderConfig) -> None:
     if config.sorted_wave:
         raise NotImplementedError(
             "the sorted-wave pipeline is not ported (ROADMAP §1 item 15)")
-    if config.shading_mode != "full":
+    if config.shading_mode not in ("full", "flat"):
         raise NotImplementedError(
-            "flat shading (hello_triangle) is not ported (ROADMAP §1 "
-            "item 10a)")
+            f"shading mode {config.shading_mode!r} is not a reference mode")
     if config.pairs_per_tile > 0:
         raise NotImplementedError(
             "per-tile pair clamps (the budget path) are not ported "
             "(ROADMAP §1 item 10b)")
-    if config.instancing == "two_level":
-        raise NotImplementedError(
-            "two-level instancing is not ported (ROADMAP §1 item 10)")
 
 
 def build_accel(config: RenderConfig, ds, meta, scene=None, device="cpu"):
-    """The flat pair-cluster accel on ``device``. Scenes the reference
-    would give a two-level accel (instances reusing meshes ≥ 2×) raise:
-    that build is not ported yet (ROADMAP §1 item 10)."""
+    """The pair-cluster accel on ``device``, picked as the reference picks
+    it: two-level when the config asks for it, or on "auto" when
+    instances reuse meshes at least 2× and the tables fit pair_meta's
+    encoding; flat otherwise."""
     from tpurt_torch.bvh.paircluster import (
-        ROWS_PER_CLUSTER, TRIS_PER_CLUSTER, build_pair_accel,
+        INST_SHIFT, ROWS_PER_CLUSTER, TRIS_PER_CLUSTER, build_pair_accel,
+        build_pair_accel_two_level,
     )
 
     total_instanced = sum(meta.mesh_tri_ranges[m][1] for m in meta.inst_mesh)
@@ -71,15 +69,13 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cpu"):
     n_inst = len(meta.inst_mesh)
     max_rows = (-(-unique // TRIS_PER_CLUSTER) * ROWS_PER_CLUSTER
                 + len(meta.mesh_tri_ranges) * ROWS_PER_CLUSTER)
-    # the reference's two-level gate (its pair_meta packs a 20-bit row
-    # base and an 11-bit instance id)
-    fits = n_inst < (1 << 11) and max_rows < (1 << 20)
-    if (config.instancing == "auto" and fits and n_inst > 1
-            and total_instanced >= 2 * unique):
-        raise NotImplementedError(
-            "this scene takes the reference's two-level accel, which is "
-            "not ported yet (ROADMAP §1 item 10)")
-    return build_pair_accel(ds, meta, scene=scene).to(device)
+    # pair_meta packs a 20-bit row base and an 11-bit instance id
+    fits = n_inst < (1 << (31 - INST_SHIFT)) and max_rows < (1 << INST_SHIFT)
+    use_tl = config.instancing == "two_level" or (
+        config.instancing == "auto" and fits and n_inst > 1
+        and total_instanced >= 2 * unique)
+    build = build_pair_accel_two_level if use_tl else build_pair_accel
+    return build(ds, meta, scene=scene).to(device)
 
 
 def render_scene(

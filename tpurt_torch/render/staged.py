@@ -2,7 +2,9 @@
 ``tpurt.render.staged``, as one eager Python loop.
 
 Per sample batch: raygen → for each bounce: closest trace, shade with NEE
-setup, occlusion trace → resolve (tile order → raster). The estimator is
+setup, occlusion trace → resolve (tile order → raster). Flat shading
+(hello_triangle) traces the primary wave only and resolves the albedo
+of each hit. The estimator is
 the reference's: same RNG tags, same masks, same event order, the same
 counter layout. The reference's per-stage executables, AOT cache, stage
 fusion variants and the sorted-wave pipeline exist to work around a TPU
@@ -199,6 +201,14 @@ class StagedRenderer:
             (want & ~occluded)[:, None], contrib, 0.0)
         return state._replace(radiance=radiance, rays=rays)
 
+    def flat_shade(self, state: WaveState, hit) -> WaveState:
+        """Flat shading: the hit's albedo, the background on a miss."""
+        attrs = self.resolver(state.org, state.dirn, hit.t, hit.u, hit.v,
+                              hit.tri, hit.inst, hit.slot)
+        radiance = torch.where(hit.valid[:, None], attrs.albedo,
+                               self.ds.background)
+        return state._replace(radiance=radiance)
+
     def resolve(self, state: WaveState):
         """Per-pixel sample sums (s0 + s1 + …), tile order → raster."""
         c = self.config
@@ -212,6 +222,9 @@ class StagedRenderer:
     def __call__(self, cam: Camera, seed: int, sample0: int):
         sampler = self.sampler(seed, sample0)
         state = self.raygen(cam, seed, sample0)
+        if self.config.shading_mode == "flat":
+            hit, state = self.trace(state, 0)
+            return self.resolve(self.flat_shade(state, hit))
         for bounce in range(self.config.max_bounces + 1):
             hit, state = self.trace(state, bounce)
             state, shadow = self.shade(state, hit, sampler, bounce)

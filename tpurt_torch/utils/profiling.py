@@ -123,8 +123,7 @@ def profile_batch(preset: str = "bunny") -> dict:
         "profiled_batch_s": prof_wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (prof_wall * 1e3)),
-        "launches": {"entries": tw.entries_cuda.launches,
-                     "tileloop": tw.tileloop_cuda.launches},
+        "launches": tw.launch_counts(),
         "kernels_ms": [{"name": k[:120], "ms": ms, "calls": n}
                        for k, ms, n in rows[:30]],
     }

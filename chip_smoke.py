@@ -12,38 +12,53 @@ Phases, in order; any failure exits nonzero and prints no result:
                 register and spill lines;
   3. kernels  — run each kernel wrapper on the waves its main path gives
                 it and hold the result against its plain PyTorch version
-                on the same inputs: the entry build (K2) bit-equal; the
-                tile loop (K1) with the slot equal on ≥ 99.99% of live
-                rays, bt within 1e-6 relative and the instance equal on
-                those. Waves: the first bounce and shadow waves of a bunny
-                800×600 × 8 spp batch (K2, K1 flat); of a sponza
-                1920×1080 × 2 spp batch through supercluster entries (K2
-                over the 414 superboxes, K1 two-level + sc) and through
-                per-cluster entries (K2 over the 2430 instance-cluster
-                boxes, K1 two-level); the primary and first shadow waves of
-                a cornell 512×512 × 16 spp batch (K1 all-pairs). Both
-                sides are timed with CUDA events;
+                on the same inputs: the entry build (K2) and the exact
+                mask (K3, both outputs) bit-equal; the tile loop (K1) with
+                the slot equal on ≥ 99.99% of live rays, bt within 1e-6
+                relative and the instance equal on those; the pair test
+                (K6) bit-equal on all four outputs. Waves: the first
+                bounce and shadow waves of a bunny 800×600 × 8 spp batch
+                (K2, K3, K1 flat); the pair lists of its primary and first
+                shadow waves (K6); of a sponza 1920×1080 × 2 spp batch
+                through supercluster entries (K2 over the 414 superboxes,
+                K1 two-level + sc) and through per-cluster entries (K2
+                over the 2430 instance-cluster boxes, K1 two-level); the
+                primary and first shadow waves of a cornell 512×512 ×
+                16 spp batch (K1 all-pairs). Both sides are timed with
+                CUDA events, and each kernel's bound (the least time the
+                card could take for the same work) is computed from the
+                wave's shapes and data;
   4. render   — each preset at its own size, one batch, through
                 render_scene(device="cuda"): bunny (8 spp), sponza (2
-                spp), cornell (16 spp) and hello_triangle (1 spp), and the
+                spp), cornell (16 spp) and hello_triangle (1 spp), the
                 sponza config over the small instanced stand-in
                 sponza_standin(8, 3), whose 126 instance-clusters take
-                per-cluster entries (K1 two-level without sc). Each
-                runs once as warmup, then once timed with the launch
-                counters zeroed just before it and read just after; its
-                kernels must have launched, the image must be finite and
-                bit-equal to the warmup's (same seed). Then the golden
-                fixtures on the card against tests/golden/data/*.npz:
-                bunny, hello_triangle and cornell at RMSE ≤ 1e-3; sponza
-                and cornell_pt at an energy bias ≤ 1e-3 with their RMSE
-                printed (sponza also under 2% of pixels off by more than
-                1e-3; ROADMAP §3 says why their RMSE is not the bar);
+                per-cluster entries (K1 two-level without sc), and the two
+                pair-budget paths on the bunny: bunny_budget
+                (pairs_per_tile=256: K3 + clamp + K1 under the budget
+                retries; it must end without overflow, with an image
+                bit-equal to the bunny path's, and prints its retries and
+                per-wave maximum entries per tile) and bunny_pair
+                (intersector bvh_pair: K6; prints the live pairs per ray
+                per wave). Each runs once as warmup, then once timed with
+                the launch counters zeroed just before it and read just
+                after; its kernels must have launched, the image must be
+                finite and bit-equal to the warmup's (same seed). Then the
+                golden fixtures on the card against tests/golden/data/*.npz:
+                bunny (also through bvh_pair), hello_triangle and cornell
+                at RMSE ≤ 1e-3; sponza and cornell_pt at an energy bias ≤
+                1e-3 with their RMSE printed (sponza also under 2% of
+                pixels off by more than 1e-3; ROADMAP §3 says why their
+                RMSE is not the bar); and the bvh_pair bunny golden with
+                pairs_per_ray=1, which must retry at least once and end
+                without overflow;
   5. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -55,6 +70,13 @@ GOLDEN_RMSE = 1e-3  # tests/golden/test_golden.py
 GOLDEN_BIAS = 1e-3  # energy bias bar of the chaos-dominated fixtures
 K1_SLOT_AGREE = 0.9999  # share of live rays whose slot must match
 K1_T_RTOL = 1e-6
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
+# HBM bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+SLAB_OPS = 28  # one ray against one box: 3 axes x (2 sub, 2 mul, min,
+# max, running max, running min) plus the hit test and the accumulation
+MT_OPS = 60  # one Moller-Trumbore test with its fold (pairwave.py:75-112)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -90,7 +112,8 @@ def batch_waves(name: str, device, spp: int, sort: bool):
     """The primary, first bounce and first shadow waves of one batch of
     the preset, prepared as the tile intersector prepares them (scene-exit
     cap; octant sort for the entry-row modes, none for all-pairs). Each
-    wave is (org, dirn, inv_d, tmax)."""
+    wave is (org, dirn, inv_d, tmax). Also the waves as the renderer hands
+    them to an intersector, (org, dirn, tmax)."""
     import torch
 
     from tpurt_torch.kernels import tilewave as tw
@@ -128,10 +151,29 @@ def batch_waves(name: str, device, spp: int, sort: bool):
         return org, dirn, tw._safe_inv(dirn), tmv
 
     alive = lambda s: torch.where(s.alive, math.inf, -1.0)
-    waves = dict(primary=prepare(state.org, state.dirn, alive(state)),
-                 bounce=prepare(state1.org, state1.dirn, alive(state1)),
-                 shadow=prepare(shadow[0], shadow[1], shadow[2]))
-    return accel, waves
+    raw = dict(primary=(state.org, state.dirn, alive(state)),
+               bounce=(state1.org, state1.dirn, alive(state1)),
+               shadow=(shadow[0], shadow[1], shadow[2]))
+    waves = {k: prepare(*v) for k, v in raw.items()}
+    return accel, waves, raw
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def slab_bound(wave, lo, out_bytes_per_tile: float) -> dict:
+    """K2/K3: every ray read once (org, inv_d, tmax), the boxes once, the
+    output once; a slab test per (ray, box)."""
+    n, n_c = wave[0].shape[0], lo.shape[0]
+    n_tiles = n // 1024
+    return bound(n * 28 + n_c * 24 + n_tiles * out_bytes_per_tile,
+                 n * n_c * SLAB_OPS)
 
 
 def check_k2(label, wave, lo, hi):
@@ -157,8 +199,74 @@ def check_k2(label, wave, lo, hi):
     if bad:
         raise AssertionError(f"K2 {label} is not bit-equal to entries_plain")
     entry = torch.sort(k2, dim=1).values
-    return entry, counts, scale, dict(ms=ms, plain_ms=plain_ms,
-                                      mismatches=bad)
+    return entry, counts, scale, dict(
+        ms=ms, plain_ms=plain_ms, mismatches=bad,
+        **slab_bound(wave, lo, k2.shape[1] * 4))
+
+
+def check_k3(label, wave, lo, hi):
+    """K3 against exact_mask_plain on one wave: mask and tn_min
+    bit-equal."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    org, _, inv_d, tmv = wave
+    mask, tn = tw.exact_mask_cuda(org, inv_d, tmv, lo, hi)
+    p_mask, p_tn = tw.exact_mask_plain(org, inv_d, tmv, lo, hi)
+    torch.cuda.synchronize()
+    bad = int((mask != p_mask).sum()) + int((tn != p_tn).sum())
+    ms = cuda_ms(lambda: tw.exact_mask_cuda(org, inv_d, tmv, lo, hi), 10)
+    plain_ms = cuda_ms(lambda: tw.exact_mask_plain(org, inv_d, tmv, lo, hi),
+                       1)
+    log(f"[kernels] K3 {label}: mask {tuple(mask.shape)}, {int(mask.sum())} "
+        f"hits, {bad} values differ from the plain version (mask and "
+        f"tn_min); {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if bad:
+        raise AssertionError(f"K3 {label} is not bit-equal to "
+                             "exact_mask_plain")
+    return dict(ms=ms, plain_ms=plain_ms, mismatches=bad,
+                **slab_bound(wave, lo, lo.shape[0] * 5))
+
+
+def check_k6(label, raw, accel, pairs_per_ray=8):
+    """K6 against pair_test_plain on the pair list of one wave, as the
+    bvh_pair intersector builds it: all four outputs bit-equal."""
+    import torch
+
+    from tpurt_torch.kernels import pairwave as pw
+    from tpurt_torch.kernels import tilewave as tw
+
+    org, dirn, tmax = raw
+    org, dirn = org.contiguous(), dirn.contiguous()
+    tmv = torch.where(torch.isfinite(tmax), tmax, tw.BIG).contiguous()
+    n = org.shape[0]
+    cap = -(-(n * pairs_per_ray) // pw.BLOCK) * pw.BLOCK
+    pr, pc, cmin, _, n_pairs, over = pw._cull_expand(
+        org, dirn, tmv, accel.cluster_lo, accel.cluster_hi,
+        n_clusters=accel.cluster_lo.shape[0], pair_cap=cap)
+    args = (pr, pc, cmin, org, dirn, tmv, accel.tri_rows)
+    k = pw.pair_test_cuda(*args)
+    p = pw.pair_test_plain(*args)
+    torch.cuda.synchronize()
+    bad = sum(int((a != b).sum()) for a, b in zip(k, p))
+    err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    ms = cuda_ms(lambda: pw.pair_test_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: pw.pair_test_plain(*args), 1)
+    slots, live = pr.shape[0], int((pr >= 0).sum())
+    n_alive = int((tmv >= 0).sum())
+    log(f"[kernels] K6 {label}: {n} rays ({n_alive} alive), {slots} slots "
+        f"in {slots // pw.BLOCK} blocks, {live} live pairs "
+        f"({live / max(n_alive, 1):.3f} per alive ray), overflow "
+        f"{bool(over)}, {int((p[3] >= 0).sum())} slot hits; {bad} values "
+        f"differ from the plain version, max abs err {err:.3e}; {ms:.3f} "
+        f"ms, plain {plain_ms:.3f} ms")
+    if bad or int(n_pairs) != live or not live:
+        raise AssertionError(f"K6 {label} disagrees with pair_test_plain")
+    rows_bytes = accel.tri_rows.numel() * 4
+    return dict(ms=ms, plain_ms=plain_ms, mismatches=bad, max_abs_err=err,
+                **bound(slots * 8 + slots // pw.BLOCK * 4 + n * 28
+                        + rows_bytes + slots * 16, live * 96 * MT_OPS))
 
 
 def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
@@ -187,6 +295,13 @@ def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
     ms = cuda_ms(lambda: tw.tileloop_cuda(*args, **tl), 10)
     plain_ms = cuda_ms(lambda: tw.tileloop_plain(*args, **tl), 1)
     n_hit = int((live & (p[3] >= 0)).sum())
+    # each ray read once, the rows, tables and entries once, the outputs
+    # once; at least one box test per ray of a tile per entry it walks
+    n = org.shape[0]
+    table_bytes = sum(t.numel() * 4 for t in tl.values() if t is not None)
+    k1_bound = bound(n * 40 + rows.numel() * 4 + table_bytes
+                     + entry.numel() * 4 + counts.numel() * 4
+                     + n * 4 * len(k), float(counts.sum()) * 1024 * SLAB_OPS)
     log(f"[kernels] K1 {label}: {n_live} live rays ({n_hit} hit), "
         f"{n_live - int(same.sum())} slot mismatches (agree {agree:.6f}), "
         f"bt max rel err {max_rel:.3e}, max abs err (bt/bu/bv) "
@@ -195,7 +310,7 @@ def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
     if agree < K1_SLOT_AGREE or max_rel > K1_T_RTOL or bi_bad or not n_hit:
         raise AssertionError(f"K1 {label} disagrees with tileloop_plain")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                mismatches=n_live - int(same.sum()))
+                mismatches=n_live - int(same.sum()), **k1_bound)
 
 
 def k1_record(name, closest, anyhit, **extra):
@@ -204,8 +319,10 @@ def k1_record(name, closest, anyhit, **extra):
         replaces="tpurt/kernels/tilewave.py:1191",
         max_abs_err=max(closest["max_abs_err"], anyhit["max_abs_err"]),
         ms=closest["ms"], plain_ms=closest["plain_ms"],
-        mismatches=closest["mismatches"], anyhit_ms=anyhit["ms"],
-        anyhit_plain_ms=anyhit["plain_ms"],
+        bound_ms=closest["bound_ms"], bound_by=closest["bound_by"],
+        library_ms=None, mismatches=closest["mismatches"],
+        anyhit_ms=anyhit["ms"], anyhit_plain_ms=anyhit["plain_ms"],
+        anyhit_bound_ms=anyhit["bound_ms"],
         anyhit_mismatches=anyhit["mismatches"], **extra)
 
 
@@ -214,8 +331,9 @@ def check_kernels(device) -> list:
     shapes its main path gives it."""
     import torch
 
-    # bunny 800×600 × 8 spp: K2 and K1 flat
-    accel, waves = batch_waves("bunny", device, 8, sort=True)
+    # bunny 800×600 × 8 spp: K2, K3 and K1 flat on the sorted waves, K6
+    # on the pair lists of the primary and shadow waves
+    accel, waves, raw = batch_waves("bunny", device, 8, sort=True)
     lo, hi, rows = accel.cluster_lo, accel.cluster_hi, accel.tri_rows
     log(f"[kernels] bunny wave: {waves['bounce'][0].shape[0]} rays, "
         f"C = {lo.shape[0]} clusters")
@@ -226,10 +344,17 @@ def check_kernels(device) -> list:
     entry, counts, scale, _ = check_k2("bunny shadow", waves["shadow"], lo, hi)
     flat_a = check_k1("flat any-hit (bunny shadow)", waves["shadow"], rows,
                       entry, counts, scale, True)
-    del accel, waves, entry
+    del entry
+    k3 = {kind: check_k3(f"bunny {kind}", waves[kind], lo, hi)
+          for kind in ("bounce", "shadow")}
+    del waves
+    k6 = {kind: check_k6(f"bunny {kind}", raw[kind], accel)
+          for kind in ("primary", "shadow")}
+    del accel, raw
+    torch.cuda.empty_cache()
 
     # sponza 1920×1080 × 2 spp: supercluster and per-cluster entries
-    accel, waves = batch_waves("sponza", device, 2, sort=True)
+    accel, waves, _ = batch_waves("sponza", device, 2, sort=True)
     rows = accel.tri_rows
     tl = dict(pair_meta=accel.pair_meta, inv_xform=accel.inv_xform)
     log(f"[kernels] sponza wave: {waves['bounce'][0].shape[0]} rays, "
@@ -254,7 +379,7 @@ def check_kernels(device) -> list:
     # cornell 512×512 × 16 spp: all-pairs (no sort, one cluster row)
     from tpurt_torch.kernels import tilewave as tw
 
-    accel, waves = batch_waves("cornell", device, 16, sort=False)
+    accel, waves, _ = batch_waves("cornell", device, 16, sort=False)
     n_c = accel.cluster_lo.shape[0]
     ap = {}
     for kind, any_hit in (("primary", False), ("shadow", True)):
@@ -274,9 +399,34 @@ def check_kernels(device) -> list:
              source="tpurt_torch/csrc/entries.cu",
              replaces="tpurt/kernels/tilewave.py:843", max_abs_err=0.0,
              ms=k2_bunny["ms"], plain_ms=k2_bunny["plain_ms"],
+             bound_ms=k2_bunny["bound_ms"], bound_by=k2_bunny["bound_by"],
+             library_ms=None,
              mismatches=sum(r["mismatches"] for r in k2_all),
              sponza_ms={k: r["ms"] for k, r in k2_sponza.items()},
-             sponza_plain_ms={k: r["plain_ms"] for k, r in k2_sponza.items()}),
+             sponza_plain_ms={k: r["plain_ms"] for k, r in k2_sponza.items()},
+             sponza_bound_ms={k: r["bound_ms"]
+                              for k, r in k2_sponza.items()}),
+        dict(name="exact_mask", route="cuda",
+             source="tpurt_torch/csrc/entries.cu",
+             replaces="tpurt/kernels/tilewave.py:709", max_abs_err=0.0,
+             ms=k3["bounce"]["ms"], plain_ms=k3["bounce"]["plain_ms"],
+             bound_ms=k3["bounce"]["bound_ms"],
+             bound_by=k3["bounce"]["bound_by"], library_ms=None,
+             mismatches=sum(r["mismatches"] for r in k3.values()),
+             shadow_ms=k3["shadow"]["ms"],
+             shadow_plain_ms=k3["shadow"]["plain_ms"],
+             shadow_bound_ms=k3["shadow"]["bound_ms"]),
+        dict(name="pair", route="cuda",
+             source="tpurt_torch/csrc/pairwave.cu",
+             replaces="tpurt/kernels/pairwave.py:123",
+             max_abs_err=max(r["max_abs_err"] for r in k6.values()),
+             ms=k6["primary"]["ms"], plain_ms=k6["primary"]["plain_ms"],
+             bound_ms=k6["primary"]["bound_ms"],
+             bound_by=k6["primary"]["bound_by"], library_ms=None,
+             mismatches=sum(r["mismatches"] for r in k6.values()),
+             shadow_ms=k6["shadow"]["ms"],
+             shadow_plain_ms=k6["shadow"]["plain_ms"],
+             shadow_bound_ms=k6["shadow"]["bound_ms"]),
         k1_record("tileloop", flat_c, flat_a),
         k1_record("tileloop_allpairs", ap["primary"], ap["shadow"]),
         k1_record("tileloop_tl", k1[("cluster", "bounce")],
@@ -299,37 +449,80 @@ def golden_configs() -> dict:
 
 
 # each main path: (preset, spp per batch, the stand-in's column segments
-# and rings or None for the preset's own scene, the kernels it must launch)
+# and rings or None for the preset's own scene, config overrides, the
+# kernels it must launch)
 PATHS = {
-    "bunny": ("bunny", 8, None, ("entries", "tileloop")),
-    "sponza": ("sponza", 2, None, ("entries", "tileloop_tl_sc")),
-    "cornell": ("cornell", 16, None, ("tileloop_allpairs",)),
-    "hello_triangle": ("hello_triangle", 1, None, ("tileloop_allpairs",)),
-    "sponza_small": ("sponza", 2, (8, 3), ("entries", "tileloop_tl")),
+    "bunny": ("bunny", 8, None, {}, ("entries", "tileloop")),
+    "sponza": ("sponza", 2, None, {}, ("entries", "tileloop_tl_sc")),
+    "cornell": ("cornell", 16, None, {}, ("tileloop_allpairs",)),
+    "hello_triangle": ("hello_triangle", 1, None, {},
+                       ("tileloop_allpairs",)),
+    "sponza_small": ("sponza", 2, (8, 3), {}, ("entries", "tileloop_tl")),
+    "bunny_budget": ("bunny", 8, None, dict(pairs_per_tile=256),
+                     ("exact_mask", "tileloop")),
+    "bunny_pair": ("bunny", 8, None, dict(intersector="bvh_pair"),
+                   ("pair",)),
 }
+# waves of one batch in the order the staged loop traces them (2 bounces)
+WAVE_NAMES = ("trace0", "occlude0", "trace1", "occlude1", "trace2",
+              "occlude2")
 
 
-def render_path(name: str, device) -> dict:
+@contextlib.contextmanager
+def wave_log():
+    """Record, per wave traced inside the block, what the budget paths
+    measure: the tile intersector's per-tile entry counts before its clamp
+    (maximum, mean, overflow) and the pair intersector's live pairs per
+    alive ray (and overflow)."""
+    from tpurt_torch.kernels import pairwave as pw
+    from tpurt_torch.kernels import tilewave as tw
+
+    rows = []
+    clamp_rows, cull_expand = tw._clamp_rows, pw._cull_expand
+
+    def clamp_logged(mask, pairs_per_tile):
+        out = clamp_rows(mask, pairs_per_tile)
+        raw = mask.sum(dim=1).float()
+        rows.append(f"max {int(raw.max())} mean {float(raw.mean()):.1f} "
+                    f"entries/tile{' OVERFLOW' if bool(out[2]) else ''}")
+        return out
+
+    def cull_logged(org, dirn, tmax, lo, hi, **kw):
+        out = cull_expand(org, dirn, tmax, lo, hi, **kw)
+        alive = int((tmax >= 0).sum())
+        rows.append(f"{float(out[4]) / max(alive, 1):.3f} pairs/ray of "
+                    f"{alive}{' OVERFLOW' if bool(out[5]) else ''}")
+        return out
+
+    tw._clamp_rows, pw._cull_expand = clamp_logged, cull_logged
+    try:
+        yield rows
+    finally:
+        tw._clamp_rows, pw._cull_expand = clamp_rows, cull_expand
+
+
+def render_path(name: str, device):
     """One batch of the path at its preset's size: warmup, then a timed
     run with the launch counters zeroed just before it. Returns its
-    counts."""
+    counts and its accumulated image."""
     import torch
 
-    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch import kernels as kn
     from tpurt_torch.render import framebuffer as fb
     from tpurt_torch.render import render_scene
     from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.scene.procedural import sponza_standin
     from tpurt_torch.utils.config import get_config
 
-    preset, spp, standin, kernels = PATHS[name]
-    config = get_config(preset, spp=spp)
+    preset, spp, standin, over, kernels = PATHS[name]
+    config = get_config(preset, spp=spp, **over)
     scene = (load_scene(config.scene) if standin is None
              else sponza_standin(*standin))
-    warm, _ = render_scene(config, device=device, scene=scene)
-    tw.reset_launch_counts()
+    with wave_log() as waves:
+        warm, _ = render_scene(config, device=device, scene=scene)
+    kn.reset_launch_counts()
     state, stats = render_scene(config, device=device, scene=scene)
-    launches = tw.launch_counts()
+    launches = kn.launch_counts()
     img = fb.resolve(state)
     finite = bool(torch.isfinite(img).all())
     same = bool(torch.equal(warm.accum, state.accum))
@@ -338,18 +531,26 @@ def render_path(name: str, device) -> dict:
         f"closest + {stats['rays_shadow']:.0f} shadow) in "
         f"{stats['elapsed_s']:.4f} s = {stats['mrays_per_s']:.4f} Mrays/s; "
         f"live {stats['live_counts']}, want {stats['want_counts']}, "
-        f"live_overflow {stats['live_overflow']}; launches {launches}; "
+        f"live_overflow {stats['live_overflow']}, pair_overflow "
+        f"{stats['pair_overflow']}, budget_retries "
+        f"{stats['budget_retries']}; launches {launches}; "
         f"image finite {finite}, mean {float(img.mean()):.6f}; "
         f"bit-equal to the warmup render (same seed) {same}")
+    for k in range(0, len(waves), len(WAVE_NAMES)):  # one line per attempt
+        log(f"[render] {name} warmup attempt {k // len(WAVE_NAMES)}: "
+            + "; ".join(f"{w} {r}" for w, r in zip(WAVE_NAMES,
+                                                    waves[k:])))
     if not finite:
         raise AssertionError(f"{name}: rendered image has non-finite pixels")
     if not same:
         raise AssertionError(f"{name}: two renders with the same seed differ")
+    if stats["pair_overflow"]:
+        raise AssertionError(f"{name}: the render ended with a pair overflow")
     for k in kernels:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched in the "
                                  "main-path render")
-    return launches
+    return launches, state.accum
 
 
 def golden_phase(device) -> None:
@@ -361,22 +562,34 @@ def golden_phase(device) -> None:
     from tpurt_torch.utils.config import get_config
 
     goldens = golden_configs()
-    for name in ("bunny", "hello_triangle", "cornell", "sponza",
-                 "cornell_pt"):
+    for name, over in (("bunny", {}), ("hello_triangle", {}),
+                       ("cornell", {}), ("sponza", {}), ("cornell_pt", {}),
+                       ("bunny", dict(intersector="bvh_pair")),
+                       ("bunny", dict(intersector="bvh_pair",
+                                      pairs_per_ray=1))):
         want = np.load(os.path.join(ROOT, "tests", "golden", "data",
                                     f"{name}.npz"))["image"]
-        cfg = get_config(name, **goldens[name])
-        state, _ = render_scene(cfg, device=device)
+        cfg = get_config(name, **dict(goldens[name], **over))
+        state, stats = render_scene(cfg, device=device)
         img = fb.resolve(state).cpu().numpy()
         rmse = float(np.sqrt(np.mean((img - want) ** 2)))
         bias = float(img.mean()) - float(want.mean())
         off = float((np.abs(img - want) > 1e-3).mean())
-        log(f"[render] golden {name} {cfg.width}x{cfg.height} x {cfg.spp} "
-            f"spp: RMSE {rmse:.3e}, energy bias {bias:+.3e}, "
-            f"{off:.4%} of pixels off by more than 1e-3")
+        log(f"[render] golden {name} {over or ''} {cfg.width}x{cfg.height} "
+            f"x {cfg.spp} spp: RMSE {rmse:.3e}, energy bias {bias:+.3e}, "
+            f"{off:.4%} of pixels off by more than 1e-3; budget_retries "
+            f"{stats['budget_retries']}, pair_overflow "
+            f"{stats['pair_overflow']}")
         if img.shape != want.shape or not np.isfinite(img).all():
             raise AssertionError(f"golden {name}: bad image")
-        if name in ("sponza", "cornell_pt"):
+        if stats["pair_overflow"]:
+            raise AssertionError(f"golden {name} {over}: ended with a pair "
+                                 "overflow")
+        if over.get("pairs_per_ray") == 1:
+            if stats["budget_retries"] < 1:
+                raise AssertionError("golden bunny with pairs_per_ray=1: "
+                                     "no budget retry")
+        elif name in ("sponza", "cornell_pt"):
             if not abs(bias) <= GOLDEN_BIAS:
                 raise AssertionError(f"golden {name}: energy bias over "
                                      "the limit")
@@ -413,10 +626,17 @@ def main() -> int:
     report = check_kernels(device)
 
     # 4. render: each preset's main path, then the goldens
-    launches = {}
+    launches, images = {}, {}
     for name in PATHS:
-        for k, v in render_path(name, device).items():
+        counts, images[name] = render_path(name, device)
+        for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    same = bool(torch.equal(images["bunny_budget"], images["bunny"]))
+    log(f"[render] bunny_budget image bit-equal to the bunny path's {same}")
+    if not same:
+        raise AssertionError("bunny_budget: image differs from the bunny "
+                             "path's")
+    del images
     golden_phase(device)
     for k in report:
         k["launches"] = launches.get(k["name"], 0)

@@ -6,11 +6,13 @@ port's dependencies are installed (a GPU machine without jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances (as chip_smoke.py): the entry build bit-equal; the traversal
-loop with the slot equal on ≥ 99.99% of live rays and bt within 1e-6
-relative on those; a render on the card within RMSE 1e-3 of the same
-render on the CPU (the plain versions, and torch's CPU and CUDA
-elementwise kernels round transcendentals differently).
+Tolerances (as chip_smoke.py): the entry build and the exact mask
+bit-equal; the pair test bit-equal (one thread per slot, the plain
+version's op order, no contraction, IEEE division); the traversal loop
+with the slot equal on ≥ 99.99% of live rays and bt within 1e-6 relative
+on those; a render on the card within RMSE 1e-3 of the same render on
+the CPU (the plain versions, and torch's CPU and CUDA elementwise kernels
+round transcendentals differently).
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ import torch
 
 from tpurt_torch.bvh.paircluster import build_pair_accel, \
     build_pair_accel_two_level
+from tpurt_torch import kernels
+from tpurt_torch.kernels import pairwave as pw
 from tpurt_torch.kernels import tilewave as tw
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render import render_scene
@@ -197,6 +201,77 @@ def test_all_pairs_render_on_cuda_matches_cpu(cuda_device, name):
     tw.reset_launch_counts()
     gpu, _ = render_scene(cfg, device=cuda_device)
     assert tw.launch_counts()["tileloop_allpairs"] > 0
+    a = fb.resolve(gpu).cpu().numpy()
+    b = fb.resolve(cpu).numpy()
+    assert np.isfinite(a).all()
+    assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_exact_mask_cuda_matches_plain(wave):
+    """K3 against its plain version: mask and tn_min bit-equal."""
+    w = wave
+    acc = w["accel"]
+    args = (w["org"], w["inv_d"], w["tmax"], acc.cluster_lo, acc.cluster_hi)
+    before = tw.exact_mask_cuda.launches
+    mask, tn = tw.exact_mask_cuda(*args)
+    assert tw.exact_mask_cuda.launches == before + 1
+    p_mask, p_tn = tw.exact_mask_plain(*args)
+    assert mask.dtype == torch.bool and mask.shape == (3, 14)
+    assert torch.equal(mask, p_mask) and torch.equal(tn, p_tn)
+    assert bool(mask.any())
+
+
+@pytest.mark.cuda
+def test_pair_test_cuda_matches_plain(cuda_device):
+    """K6 against its plain version on a pair list of the bunny stand-in:
+    all four outputs bit-equal, dead slots included."""
+    scene = bunny_standin(subdivisions=3)
+    acc = build_pair_accel(None, scene_meta(scene),
+                           scene=scene).to(cuda_device)
+    rng = np.random.default_rng(5)
+    n = 3000
+    center = ((acc.cluster_lo.amin(0) + acc.cluster_hi.amax(0)) / 2).cpu()
+    org = center.numpy() + rng.normal(size=(n, 3)) * 4.5
+    d = center.numpy() + rng.normal(size=(n, 3)) * 1.2 - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(n) % 9 == 0, -1.0, 3.4e38)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda_device)
+    org, d, tmax = t(org), t(d), t(tmax)
+    pr, pc, cmin, _, n_pairs, over = pw._cull_expand(
+        org, d, tmax, acc.cluster_lo, acc.cluster_hi,
+        n_clusters=acc.cluster_lo.shape[0], pair_cap=8 * 3072)
+    assert int(n_pairs) > n and not bool(over)
+    args = (pr, pc, cmin, org, d, tmax, acc.tri_rows)
+    got = pw.pair_test_cuda(*args)
+    want = pw.pair_test_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[3] >= 0).sum()) > 500 and bool((pr < 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(pairs_per_tile=4),
+                                  dict(intersector="bvh_pair")],
+                         ids=["budget", "pair"])
+def test_budget_and_pair_renders_on_cuda_match_cpu(cuda_device, over):
+    """The two budget paths on the card: the clamped bvh_tile render
+    retries as on the CPU and launches K3; the bvh_pair render launches
+    K6; both within RMSE 1e-3 of the CPU render."""
+    cfg = get_config("bunny", width=64, height=48, spp=2, spp_per_batch=2,
+                     max_bounces=2, **over)
+    scene = bunny_standin(subdivisions=3)
+    cpu, cpu_stats = render_scene(cfg, device="cpu", scene=scene)
+    kernels.reset_launch_counts()
+    gpu, stats = render_scene(cfg, device=cuda_device, scene=scene)
+    counts = kernels.launch_counts()
+    assert stats["budget_retries"] == cpu_stats["budget_retries"]
+    assert not stats["pair_overflow"]
+    if "pairs_per_tile" in over:
+        assert stats["budget_retries"] > 0
+        assert counts["exact_mask"] > 0 and counts["tileloop"] > 0
+    else:
+        assert counts["pair"] > 0
     a = fb.resolve(gpu).cpu().numpy()
     b = fb.resolve(cpu).numpy()
     assert np.isfinite(a).all()

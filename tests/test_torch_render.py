@@ -129,7 +129,7 @@ def test_unported_paths_raise():
     scene = bunny_standin(subdivisions=3)
     for kw in (dict(pipeline="mega"), dict(pipeline="wavefront"),
                dict(intersector="brute"), dict(n_tile_shards=2),
-               dict(n_sample_shards=2), dict(pairs_per_tile=64)):
+               dict(n_sample_shards=2), dict(intersector="bvh_packet")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_scene(get_config("bunny", **dict(SMALL, **kw)),
                          device="cpu", scene=scene)
@@ -177,3 +177,27 @@ def test_cuda_device_without_gpu_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         render_scene(get_config("bunny", **SMALL), device="cuda",
                      scene=bunny_standin(subdivisions=3))
+
+
+def test_entry_points_default_to_the_card():
+    """to_device, build_accel, new_frame_state, render_scene and
+    render_to_png run on the card unless the caller asks for the CPU:
+    without one, each raises rather than falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from tpurt_torch.render import build_accel, render_to_png
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.scene.device import to_device
+
+    scene = bunny_standin(subdivisions=3)
+    cfg = get_config("bunny", **SMALL)
+    calls = (lambda: to_device(scene),
+             lambda: build_accel(cfg, to_device(scene, "cpu"),
+                                 scene_meta(scene), scene=scene),
+             lambda: fb.new_frame_state(8, 6),
+             lambda: render_scene(cfg, scene=scene),
+             lambda: render_to_png(cfg, os.devnull))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert fb.new_frame_state(8, 6, device="cpu").accum.device.type == "cpu"

@@ -1,8 +1,24 @@
 """Hand-written CUDA kernels and their plain PyTorch versions.
 
-``tilewave`` holds the two kernels of the flat tile traversal path —
-the exact entry build (``csrc/entries.cu``) and the tile loop
-(``csrc/tileloop.cu``) — behind wrappers that launch the kernel for CUDA
-tensors and run the plain version for CPU tensors. ``cuda_build`` compiles
-the sources with nvcc at first use.
+``tilewave`` holds the tile traversal path's kernels — the exact entry
+build and exact mask (``csrc/entries.cu``) and the tile loop
+(``csrc/tileloop.cu``); ``pairwave`` the pair-wavefront intersector's pair
+test (``csrc/pairwave.cu``). Each sits behind a wrapper that launches the
+kernel for CUDA tensors and runs the plain version for CPU tensors.
+``cuda_build`` compiles the sources with nvcc at first use.
 """
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel's launch counter."""
+    from tpurt_torch.kernels import pairwave, tilewave
+
+    tilewave.reset_launch_counts()
+    pairwave.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset, by kernel (K1 by mode)."""
+    from tpurt_torch.kernels import pairwave, tilewave
+
+    return {**tilewave.launch_counts(), **pairwave.launch_counts()}

@@ -25,7 +25,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("entries.cu", "tileloop.cu")
+SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -46,6 +46,11 @@ class KernelLibrary:
         lib.tpurt_entries.argtypes = [p, p, p, p, p, i, i, i,
                                       ctypes.c_float, p, p]
         lib.tpurt_entries.restype = i
+        lib.tpurt_exact_mask.argtypes = [p, p, p, p, p, i, i, i, p, p, p]
+        lib.tpurt_exact_mask.restype = i
+        lib.tpurt_pair_test.argtypes = [p, p, p, p, p, p, p, ctypes.c_long,
+                                        p, p, p, p, p]
+        lib.tpurt_pair_test.restype = i
         lib.tpurt_tileloop.argtypes = [p, p, p, p, p, p, p, i, i,
                                        ctypes.c_float, i, p, p, p,
                                        p, p, p, p, p, p]

@@ -17,19 +17,32 @@ clusters' triangles against the tile's rays:
      lean any-hit;
   4. results are un-permuted to the caller's ray order.
 
-Both kernels are hand-written CUDA (``tpurt_torch/csrc``) launched by
-``entries_cuda``/``tileloop_cuda``; ``entries_plain``/``tileloop_plain``
-are their plain PyTorch versions. The dispatching wrappers take the plain
-version only for CPU tensors: a CUDA tensor launches the kernel or raises.
+With a per-tile clamp (``pairs_per_tile > 0``, the budget path) the
+entry rows come unpacked instead: the exact mask and minimum entry
+distance (K3, ``exact_mask``) on sorted waves, the interval mask on
+primary waves; each tile keeps its first ``min(pairs_per_tile − 1, C)``
+hit clusters in cluster order, the overflow flag goes to stats[1], and the
+kept entries are packed, sorted and traversed as above.
+
+The kernels are hand-written CUDA (``tpurt_torch/csrc``: K2 and K3 share
+``entries.cu``) launched by ``entries_cuda``/``exact_mask_cuda``/
+``tileloop_cuda``; ``entries_plain``/``exact_mask_plain``/
+``tileloop_plain`` are their plain PyTorch versions. The dispatching
+wrappers take the plain version only for CPU tensors: a CUDA tensor
+launches the kernel or raises.
 
 K1's modes, as the reference picks them: entry rows per cluster (flat or
 two-level), entry rows per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS
-(sponza), and the all-pairs row for scenes of at most 8 clusters (the
-hello and Cornell presets). A two-level accel transforms the ray into
-each instance-cluster's object space inside K1.
+(sponza) unless a per-tile clamp is set, and the all-pairs row for scenes
+of at most 8 clusters (the hello and Cornell presets), which ignores the
+clamp. A two-level accel transforms the ray into each instance-cluster's
+object space inside K1.
 
-Not ported yet (ROADMAP §1): the exact-mask kernel of the budget path
-(K3, item 10b) and the grid-over-pairs kernel (K4, item 15).
+Entry rows are used at every wave size: device memory holds the (T, Cp)
+slab where the reference's VMEM budget did not, so the reference's
+pair-segment fallback past that budget (K1's ``off``/``pair_cl`` mode) is
+not carried. Not ported yet (ROADMAP §1 item 15): that segment mode and
+the grid-over-pairs kernel (K4).
 """
 
 from __future__ import annotations
@@ -171,11 +184,11 @@ def _pack_entries(mask, tn, scale: float):
 # --------------------------------------------------------------------------
 
 
-def entries_plain(org, inv_d, tmax, lo, hi, scale: float):
-    """Plain PyTorch version of the exact entry build: per (tile,
-    cluster), slab-test every live ray, keep hit-any and the minimum
-    entry distance over hitting rays, pack the entry word.
-    Returns the unsorted (T, cp) int32 slab."""
+def exact_mask_plain(org, inv_d, tmax, lo, hi):
+    """Plain PyTorch version of the exact mask (K3): per (tile, cluster),
+    slab-test every live ray and keep hit-any and the minimum entry
+    distance over the hitting rays. Returns ((T, C) bool mask, (T, C) f32
+    tn_min, BIG where no ray hits)."""
     n_tiles = org.shape[0] // TILE
     n_c = lo.shape[0]
     budget = 1 << (26 if org.device.type == "cuda" else 22)
@@ -197,7 +210,14 @@ def entries_plain(org, inv_d, tmax, lo, hi, scale: float):
         hit = (tn <= tf) & (tm >= 0.0)
         hits.append(hit.any(dim=1))
         tns.append(torch.where(hit, tn, BIG).amin(dim=1))
-    return _pack_entries(torch.cat(hits), torch.cat(tns), scale)
+    return torch.cat(hits), torch.cat(tns)
+
+
+def entries_plain(org, inv_d, tmax, lo, hi, scale: float):
+    """Plain PyTorch version of the exact entry build (K2): the exact
+    mask's slab reduction, packed into entry words. Returns the unsorted
+    (T, cp) int32 slab."""
+    return _pack_entries(*exact_mask_plain(org, inv_d, tmax, lo, hi), scale)
 
 
 def _check(name, t, dtype, shape, device):
@@ -216,14 +236,12 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
-    """Launch the CUDA entry-build kernel (csrc/entries.cu) on the
-    current stream. Returns the unsorted (T, cp) int32 slab."""
-    from tpurt_torch.kernels import cuda_build
-
+def _slab_args(name, org, inv_d, tmax, lo, hi):
+    """Checks shared by the K2 and K3 launchers; returns (device, n_tiles,
+    n_clusters, cp)."""
     dev = org.device
     if dev.type != "cuda":
-        raise ValueError(f"entries_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     n = org.shape[0]
     if n % TILE:
         raise ValueError(f"ray count {n} is not a multiple of {TILE}")
@@ -236,7 +254,16 @@ def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
     _check("tmax", tmax, f32, (n,), dev)
     _check("lo", lo, f32, (n_c, 3), dev)
     _check("hi", hi, f32, (n_c, 3), dev)
-    cp = _padded_lanes(n_c)
+    return dev, n_tiles, n_c, _padded_lanes(n_c)
+
+
+def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
+    """Launch the CUDA entry-build kernel (csrc/entries.cu) on the
+    current stream. Returns the unsorted (T, cp) int32 slab."""
+    from tpurt_torch.kernels import cuda_build
+
+    dev, n_tiles, n_c, cp = _slab_args("entries_cuda", org, inv_d, tmax, lo,
+                                       hi)
     out = torch.empty((n_tiles, cp), dtype=torch.int32, device=dev)
     lib = cuda_build.load().lib
     err = lib.tpurt_entries(
@@ -258,6 +285,38 @@ def exact_entries(org, inv_d, tmax, lo, hi, scale: float):
     if org.device.type == "cpu":
         return entries_plain(org, inv_d, tmax, lo, hi, scale)
     return entries_cuda(org, inv_d, tmax, lo, hi, scale)
+
+
+def exact_mask_cuda(org, inv_d, tmax, lo, hi):
+    """Launch the CUDA exact-mask kernel (csrc/entries.cu, the K2 body
+    without the pack) on the current stream. Returns ((T, C) bool mask,
+    (T, C) f32 tn_min, BIG where no ray hits)."""
+    from tpurt_torch.kernels import cuda_build
+
+    dev, n_tiles, n_c, cp = _slab_args("exact_mask_cuda", org, inv_d, tmax,
+                                       lo, hi)
+    mask = torch.empty((n_tiles, n_c), dtype=torch.bool, device=dev)
+    tn = torch.empty((n_tiles, n_c), dtype=torch.float32, device=dev)
+    lib = cuda_build.load().lib
+    err = lib.tpurt_exact_mask(
+        org.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), n_tiles, n_c, cp, mask.data_ptr(), tn.data_ptr(),
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"exact_mask kernel launch failed: cudaError {err}")
+    exact_mask_cuda.launches += 1
+    return mask, tn
+
+
+exact_mask_cuda.launches = 0
+
+
+def exact_mask(org, inv_d, tmax, lo, hi):
+    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if org.device.type == "cpu":
+        return exact_mask_plain(org, inv_d, tmax, lo, hi)
+    return exact_mask_cuda(org, inv_d, tmax, lo, hi)
 
 
 # --------------------------------------------------------------------------
@@ -574,13 +633,15 @@ def tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts,
 
 def reset_launch_counts() -> None:
     entries_cuda.launches = 0
+    exact_mask_cuda.launches = 0
     tileloop_cuda.launches = 0
     tileloop_cuda.variant_launches = {}
 
 
 def launch_counts() -> dict:
-    """Launches since the last reset: K2, and K1 by mode."""
+    """Launches since the last reset: K2, K3, and K1 by mode."""
     return {"entries": entries_cuda.launches,
+            "exact_mask": exact_mask_cuda.launches,
             **tileloop_cuda.variant_launches}
 
 
@@ -603,27 +664,52 @@ def _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag):
     return torch.where(tmv >= 0.0, torch.minimum(tmv, cap), tmv)
 
 
+def _clamp_rows(mask, pairs_per_tile: int):
+    """The budget path's per-tile clamp: each tile keeps its first
+    ``min(pairs_per_tile − 1, C)`` hit clusters in cluster order (the
+    reference counts a grid-mode sentinel slot in the budget). Returns the
+    clamped mask, the kept counts and whether any tile had more."""
+    n_c = mask.shape[1]
+    keep = min(pairs_per_tile - 1, n_c)
+    counts_raw = mask.sum(dim=1, dtype=torch.int32)
+    if keep < n_c:
+        rank = torch.cumsum(mask, dim=1, dtype=torch.int32)
+        mask = mask & (rank <= keep)
+        overflow = (counts_raw > keep).any()
+    else:
+        overflow = torch.zeros((), dtype=torch.bool, device=mask.device)
+    return mask, torch.clamp_max(counts_raw, keep), overflow
+
+
 def _trace_entry_rows(org, dirn, tmv, lo, hi, tri_rows, scale, *,
-                      any_hit, exact, tl):
+                      any_hit, exact, tl, pairs_per_tile=0):
     """One wave through the entry-row path: entry slab over the boxes
     lo/hi (exact K2 build on sorted waves, interval frustum mask on
-    primary waves), per-row sort, traversal. ``tl``: the two-level and
-    supercluster tables for K1. Returns ((bt, bu, bv, bs[, bi]),
-    n_pairs)."""
+    primary waves; with ``pairs_per_tile > 0`` the unpacked exact mask K3
+    or the interval mask, clamped per tile, then packed), per-row sort,
+    traversal. ``tl``: the two-level and supercluster tables for K1.
+    Returns ((bt, bu, bv, bs[, bi]), n_pairs, overflow)."""
     n_tiles = org.shape[0] // TILE
     inv_d = _safe_inv(dirn)
-    if exact:
+    overflow = torch.zeros((), dtype=torch.bool, device=org.device)
+    if exact and pairs_per_tile <= 0:
         entry = exact_entries(org, inv_d, tmv, lo, hi, scale)
         counts = (entry != INT32_MAX).sum(dim=1, dtype=torch.int32)
     else:
-        mask, tn_lower = _tile_mask(org, dirn, tmv, lo, hi, n_tiles,
-                                    return_tn=True)
-        counts = mask.sum(dim=1, dtype=torch.int32)
-        entry = _pack_entries(mask, tn_lower, scale)
+        if exact:
+            mask, tn = exact_mask(org, inv_d, tmv, lo, hi)
+        else:
+            mask, tn = _tile_mask(org, dirn, tmv, lo, hi, n_tiles,
+                                  return_tn=True)
+        if pairs_per_tile > 0:
+            mask, counts, overflow = _clamp_rows(mask, pairs_per_tile)
+        else:
+            counts = mask.sum(dim=1, dtype=torch.int32)
+        entry = _pack_entries(mask, tn, scale)
     entry = torch.sort(entry, dim=1).values  # per-row front-to-back
     out = tileloop(org, dirn, inv_d, tmv, tri_rows, entry, counts, scale,
                    any_hit, **tl)
-    return out, counts.sum(dtype=torch.float32)
+    return out, counts.sum(dtype=torch.float32), overflow
 
 
 def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
@@ -643,7 +729,8 @@ def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
     return out, torch.tensor(float(n_tiles * n_clusters), device=dev)
 
 
-def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
+def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
+                          ray_sort: str = "none",
                           shadow_ray_sort: str = "octant",
                           lean: bool = False, live_cap: int = 0,
                           shadow_live_cap: int = 0):
@@ -658,6 +745,12 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
     superboxes and K1 expands each into its children; otherwise entries
     are per cluster. A two-level accel (``pair_meta``) runs K1 in object
     space per instance-cluster and reports the hit instance.
+
+    ``pairs_per_tile`` > 0 clamps every tile's entry row to its first
+    ``min(pairs_per_tile − 1, C)`` hit clusters in cluster order (a
+    clamped tile drops hits) and reports the overflow in stats[1]; it
+    switches superclusters off and leaves the all-pairs row alone, as in
+    the reference. 0 = no clamp.
 
     ``ray_sort``/``shadow_ray_sort``: "none" (keep the caller's order,
     interval-frustum entries — primary waves) or "octant" (coherence sort
@@ -685,6 +778,7 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
               inv_xform=getattr(accel, "inv_xform", None))
     all_pairs = n_clusters <= ALLPAIRS_MAX_CLUSTERS
     sc_active = (not all_pairs and accel.sc_meta is not None
+                 and pairs_per_tile <= 0
                  and n_clusters >= SC_AUTO_MIN_CLUSTERS)
     if sc_active:
         # entry rows over the superboxes; K1 expands the children
@@ -732,9 +826,9 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
                 live_over = (tmv[kt * TILE:] >= 0.0).sum(dtype=torch.float32)
                 org, dirn, tmv = (org[:kt * TILE], dirn[:kt * TILE],
                                   tmv[:kt * TILE])
-        out, n_pairs = _trace_entry_rows(
+        out, n_pairs, overflow = _trace_entry_rows(
             org, dirn, tmv, e_lo, e_hi, tri_rows, scale, any_hit=any_hit,
-            exact=perm is not None, tl=tl)
+            exact=perm is not None, tl=tl, pairs_per_tile=pairs_per_tile)
         if out[0].shape[0] < n_full:
             # truncated wave: the dropped tail gets the kernel's dead-lane
             # values (bt −1, bu bv 0, bs −1, bi −1) before the un-permute
@@ -752,7 +846,7 @@ def make_tile_intersector(ds, accel, *, ray_sort: str = "none",
                 r[perm] = out[k]
                 restored[k] = r
             out = tuple(restored)
-        stats = torch.stack([n_pairs, torch.zeros_like(n_pairs), live_over])
+        stats = torch.stack([n_pairs, overflow.to(torch.float32), live_over])
         return tuple(f[:n] for f in out), stats
 
     def _hit_from(bt, bu, bv, bs, bi=None):

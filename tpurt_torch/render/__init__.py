@@ -1,15 +1,20 @@
 """Render entry point — port of ``tpurt.render.render_scene``.
 
-``render_scene(config, device=...)`` renders ``config.spp`` samples per
-pixel in progressive batches through the staged wave loop on ``device``
-and returns (FrameState, stats). The uncapped re-render on live overflow
-is kept; the reference's pair-budget retries have nothing to retry here
-(entry rows have no pair capacity).
+``render_scene(config)`` renders ``config.spp`` samples per pixel in
+progressive batches through the staged wave loop on the card (or on
+``device="cpu"``, where every kernel runs its plain version) and returns
+(FrameState, stats). It keeps the reference's safety nets: the uncapped
+re-render when a live-wave cap cut alive rays, and the budget retries —
+a render whose trace reported a pair-budget overflow (the per-tile clamp
+of ``bvh_tile``, or ``bvh_pair``'s pairs per ray) is re-rendered with
+doubled budgets, and ``BudgetOverflowError`` is raised when the retries
+run out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Optional
@@ -21,19 +26,28 @@ from tpurt_torch.core.camera import Camera
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render.intersectors import scene_meta
 from tpurt_torch.render.png import write_png
-from tpurt_torch.scene.device import to_device
+from tpurt_torch.scene.device import to_device, torch_device
 from tpurt_torch.scene.loader import load_scene
 from tpurt_torch.utils.config import RenderConfig, get_config
+
+
+class BudgetOverflowError(RuntimeError):
+    """Pair-budget overflow persisted after all budget-doubling retries.
+
+    The render proceeded with truncated traversal — trailing clusters were
+    dropped and the image is missing hits. Raised (instead of returning a
+    silently-wrong image) unless TPURT_ALLOW_OVERFLOW=1.
+    """
 
 
 def _check_supported(config: RenderConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for every
     config the port does not carry yet."""
     kind = config.resolved_intersector()
-    if kind != "bvh_tile":
+    if kind not in ("bvh_tile", "bvh_pair"):
         raise NotImplementedError(
             f"intersector {kind!r} is not ported (ROADMAP §1 item 15: "
-            "alternates and oracles; only bvh_tile is)")
+            "alternates and oracles; bvh_tile and bvh_pair are)")
     pipeline = config.resolved_pipeline()
     if pipeline != "staged":
         raise NotImplementedError(
@@ -48,21 +62,20 @@ def _check_supported(config: RenderConfig) -> None:
     if config.shading_mode not in ("full", "flat"):
         raise NotImplementedError(
             f"shading mode {config.shading_mode!r} is not a reference mode")
-    if config.pairs_per_tile > 0:
-        raise NotImplementedError(
-            "per-tile pair clamps (the budget path) are not ported "
-            "(ROADMAP §1 item 10b)")
 
 
-def build_accel(config: RenderConfig, ds, meta, scene=None, device="cpu"):
-    """The pair-cluster accel on ``device``, picked as the reference picks
-    it: two-level when the config asks for it, or on "auto" when
-    instances reuse meshes at least 2× and the tables fit pair_meta's
-    encoding; flat otherwise."""
+def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
+    """The pair-cluster accel on ``device`` (the card unless the caller
+    asks for the CPU), picked as the reference picks it: for ``bvh_tile``
+    two-level when the config asks for it, or on "auto" when instances
+    reuse meshes at least 2× and the tables fit pair_meta's encoding;
+    flat otherwise, and always flat for ``bvh_pair``."""
     from tpurt_torch.bvh.paircluster import (
         INST_SHIFT, ROWS_PER_CLUSTER, TRIS_PER_CLUSTER, build_pair_accel,
         build_pair_accel_two_level,
     )
+
+    device = torch_device(device)
 
     total_instanced = sum(meta.mesh_tri_ranges[m][1] for m in meta.inst_mesh)
     unique = sum(r[1] for r in meta.mesh_tri_ranges)
@@ -71,9 +84,10 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cpu"):
                 + len(meta.mesh_tri_ranges) * ROWS_PER_CLUSTER)
     # pair_meta packs a 20-bit row base and an 11-bit instance id
     fits = n_inst < (1 << (31 - INST_SHIFT)) and max_rows < (1 << INST_SHIFT)
-    use_tl = config.instancing == "two_level" or (
-        config.instancing == "auto" and fits and n_inst > 1
-        and total_instanced >= 2 * unique)
+    use_tl = config.resolved_intersector() == "bvh_tile" and (
+        config.instancing == "two_level" or (
+            config.instancing == "auto" and fits and n_inst > 1
+            and total_instanced >= 2 * unique))
     build = build_pair_accel_two_level if use_tl else build_pair_accel
     return build(ds, meta, scene=scene).to(device)
 
@@ -81,27 +95,36 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cpu"):
 def render_scene(
     config: RenderConfig,
     *,
-    device,
+    device="cuda",
     scene=None,
     camera: Optional[Camera] = None,
     state: Optional[fb.FrameState] = None,
     verbose: bool = False,
+    max_budget_retries: int = 3,
 ):
-    """Render ``config.spp`` samples progressively on ``device``; returns
-    (FrameState, stats).
+    """Render ``config.spp`` samples progressively on ``device`` (the card
+    unless the caller asks for the CPU); returns (FrameState, stats).
 
     ``scene``: a host Scene (else built from ``config.scene``);
     ``camera`` overrides the scene camera; ``state`` resumes an earlier
     accumulation. Measured live-wave caps (``utils.autotune``) apply when
     the config carries none; if a cap cut alive rays (stats
     ``live_overflow``), the frame is re-rendered uncapped with a warning.
+
+    Pair-budget safety, as in the reference: when a trace reports a
+    pair-budget overflow (stats ``pair_overflow`` — clusters dropped,
+    hits lost), the frame is re-rendered from the caller's ``state`` with
+    doubled budgets (``pairs_per_tile``, ``pairs_avg*``,
+    ``pairs_per_ray``), up to ``max_budget_retries`` times;
+    ``budget_retries`` records how many doublings were needed. If the
+    overflow persists after the last retry the image is wrong and
+    ``BudgetOverflowError`` is raised; ``TPURT_ALLOW_OVERFLOW=1`` turns it
+    into a RuntimeWarning and returns the truncated image (the stats
+    still record the overflow).
     """
     from tpurt_torch.utils import autotune
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render_scene: device='cuda' but torch finds "
-                           "no CUDA device")
+    device = torch_device(device)
     _check_supported(config)
     if not config.live_caps:
         caps = autotune.live_caps_for(config)
@@ -113,22 +136,62 @@ def render_scene(
             config = dataclasses.replace(config, shadow_caps=scaps)
     if scene is None:
         scene = load_scene(config.scene)
+    # the retries change budgets only: one scene upload and accel serve all
+    meta = scene_meta(scene)
+    ds = to_device(scene, device)
+    accel = build_accel(config, ds, meta, scene=scene, device=device)
+    retries = 0
     while True:
         out_state, stats = _render_scene_once(config, scene, camera, state,
-                                              verbose, device)
-        stats["budget_retries"] = 0
-        if not stats["live_overflow"]:
+                                              verbose, device, meta, ds,
+                                              accel)
+        stats["budget_retries"] = retries
+        if stats["live_overflow"]:
+            warnings.warn(
+                "live-wave cap truncated alive rays "
+                f"(caps={config.live_caps}, shadow={config.shadow_caps}) — "
+                "re-rendering uncapped",
+                RuntimeWarning,
+            )
+            config = dataclasses.replace(config, live_caps=(),
+                                         shadow_caps=())
+            continue
+        if not stats["pair_overflow"]:
             return out_state, stats
-        warnings.warn(
-            "live-wave cap truncated alive rays "
-            f"(caps={config.live_caps}, shadow={config.shadow_caps}) — "
-            "re-rendering uncapped",
-            RuntimeWarning,
+        if retries >= max_budget_retries:
+            msg = (
+                f"pair-budget overflow persists after {retries} "
+                f"budget-doubling retries "
+                f"({stats['pair_overflow_events']} overflow events this "
+                f"frame; budgets now avg={config.pairs_avg}/"
+                f"{config.pairs_avg_bounce}/{config.pairs_avg_shadow}, "
+                f"per_tile={config.pairs_per_tile}) — traversal was "
+                "truncated and the image is wrong. Raise the pairs_* "
+                "budgets in the config, or set TPURT_ALLOW_OVERFLOW=1 to "
+                "accept the truncated image."
+            )
+            if os.environ.get("TPURT_ALLOW_OVERFLOW") == "1":
+                warnings.warn(msg, RuntimeWarning)
+                return out_state, stats
+            raise BudgetOverflowError(msg)
+        retries += 1
+        dbl = lambda v: v * 2 if v > 0 else 0
+        config = dataclasses.replace(
+            config,
+            pairs_per_tile=dbl(config.pairs_per_tile),
+            pairs_avg=dbl(config.pairs_avg),
+            pairs_avg_bounce=dbl(config.pairs_avg_bounce),
+            pairs_avg_shadow=dbl(config.pairs_avg_shadow),
+            pairs_per_ray=config.pairs_per_ray * 2,
         )
-        config = dataclasses.replace(config, live_caps=(), shadow_caps=())
+        if verbose:
+            print(f"  pair-budget overflow: retrying with doubled budgets "
+                  f"(per_tile={config.pairs_per_tile}, "
+                  f"per_ray={config.pairs_per_ray})")
 
 
-def _render_scene_once(config, scene, camera, state, verbose, device):
+def _render_scene_once(config, scene, camera, state, verbose, device, meta,
+                       ds, accel):
     from tpurt_torch.render.staged import StagedRenderer
 
     cam = camera if camera is not None else scene.camera
@@ -139,9 +202,6 @@ def _render_scene_once(config, scene, camera, state, verbose, device):
     if config.spp_per_batch > spp_fit:
         config = dataclasses.replace(config, spp_per_batch=spp_fit)
 
-    meta = scene_meta(scene)
-    ds = to_device(scene, device)
-    accel = build_accel(config, ds, meta, scene=scene, device=device)
     renderer = StagedRenderer(ds, accel, meta=meta, config=config,
                               device=device)
     if state is None:
@@ -191,9 +251,10 @@ def _render_scene_once(config, scene, camera, state, verbose, device):
     return state, stats
 
 
-def render_to_png(name_or_config, path: str, *, device,
+def render_to_png(name_or_config, path: str, *, device="cuda",
                   verbose: bool = False, **overrides):
-    """One-call demo: preset/config → PNG file."""
+    """One-call demo: preset/config → PNG file, rendered on ``device``
+    (the card unless the caller asks for the CPU)."""
     config = (
         name_or_config
         if isinstance(name_or_config, RenderConfig)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpurt_torch.scene.device import torch_device
+
 
 class FrameState(NamedTuple):
     accum: torch.Tensor  # (H, W, 3) f32 — running *sum* of radiance samples
@@ -30,10 +32,12 @@ class FrameState(NamedTuple):
 
 
 def new_frame_state(width: int, height: int, seed: int = 0,
-                    device="cpu") -> FrameState:
+                    device="cuda") -> FrameState:
+    """An empty accumulation on ``device`` (the card unless the caller
+    asks for the CPU)."""
     return FrameState(
         accum=torch.zeros((height, width, 3), dtype=torch.float32,
-                          device=device),
+                          device=torch_device(device)),
         n_samples=0,
         seed=int(seed),
         batch_index=0,

@@ -1,5 +1,5 @@
-"""Intersector selection for the render loop — the ``bvh_tile`` branch of
-``tpurt.render.integrator.make_intersectors``.
+"""Intersector selection for the render loop — the ``bvh_tile`` and
+``bvh_pair`` branches of ``tpurt.render.integrator.make_intersectors``.
 
 The reference's megakernel ``render_batch`` and the alpha-cutout
 occluder/closest wrappers are not ported yet (ROADMAP §1 items 11 and 15);
@@ -18,16 +18,24 @@ SHADOW_EPS = 1e-3
 def make_intersectors(ds, accel, *, meta: SceneMeta, config: RenderConfig,
                       wave: str = "bounce", lean: bool = False,
                       live_cap: int = 0, shadow_live_cap: int = 0):
-    """Closest/any-hit pair of the tile intersector for one wave kind:
-    "primary" (camera waves — the config's primary sort, screen-tile
-    order by default) or "bounce" (incoherent waves — octant sort).
+    """Closest/any-hit pair for one wave kind. ``bvh_pair`` takes the
+    pair-wavefront intersector with ``config.pairs_per_ray`` for every
+    wave (it has no sort, lean mode or live caps, as in the reference).
+    Otherwise the tile intersector: "primary" (camera waves — the
+    config's primary sort, screen-tile order by default) or "bounce"
+    (incoherent waves — octant sort), with the config's per-tile clamp.
     ``lean=True`` skips the Hit.tri/Hit.inst lookups (renderers shade
     through Hit.slot)."""
-    from tpurt_torch.kernels.tilewave import make_tile_intersector
-
     if meta.has_alpha_cutout:
         raise NotImplementedError(
             "alpha-cutout scenes are not ported yet (ROADMAP §1 item 11)")
+    if config.intersector == "bvh_pair":
+        from tpurt_torch.kernels.pairwave import make_pair_intersector
+
+        return make_pair_intersector(ds, accel,
+                                     pairs_per_ray=config.pairs_per_ray)
+    from tpurt_torch.kernels.tilewave import make_tile_intersector
+
     if wave == "primary":
         sort = config.tile_primary_sort
     elif wave == "bounce":
@@ -37,7 +45,7 @@ def make_intersectors(ds, accel, *, meta: SceneMeta, config: RenderConfig,
             f"wave kind {wave!r}: the sorted-wave pipeline is not ported "
             "yet (ROADMAP §1 item 15)")
     return make_tile_intersector(
-        ds, accel, ray_sort=sort,
+        ds, accel, pairs_per_tile=config.pairs_per_tile, ray_sort=sort,
         shadow_ray_sort=config.tile_shadow_sort,
         lean=lean, live_cap=live_cap, shadow_live_cap=shadow_live_cap,
     )

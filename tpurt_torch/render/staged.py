@@ -124,11 +124,22 @@ class StagedRenderer:
         rays = state.rays.clone()
         rays[0] += state.alive.sum()
         tmax = torch.where(state.alive, math.inf, -1.0)
-        hit, tstats = self.closest[bounce].with_stats(
-            state.org, state.dirn, 0.0, tmax)
-        rays[2] += tstats[1]
-        rays[3] += tstats[2]
+        hit = self._call(self.closest[bounce], rays, state.org, state.dirn,
+                         tmax)
         return hit, state._replace(rays=rays)
+
+    @staticmethod
+    def _call(fn, rays, org, dirn, tmax):
+        """One intersector call; its stats go into the counters where it
+        reports them (pair overflow, and live overflow where there is a
+        third entry). The pair intersector's any-hit reports none."""
+        if not hasattr(fn, "with_stats"):
+            return fn(org, dirn, 0.0, tmax)
+        out, tstats = fn.with_stats(org, dirn, 0.0, tmax)
+        rays[2] += tstats[1]
+        if tstats.shape[0] > 2:
+            rays[3] += tstats[2]
+        return out
 
     def shade(self, state: WaveState, hit, sampler, bounce: int):
         """Miss/emission events, NEE shadow-ray setup, bounce sampling.
@@ -193,10 +204,8 @@ class StagedRenderer:
         rays = state.rays.clone()
         rays[1] += n_want
         rays[self.want0 + bounce] += n_want
-        occluded, tstats = self.occluders[bounce].with_stats(
-            s_org, s_dir, 0.0, s_tmax)
-        rays[2] += tstats[1]
-        rays[3] += tstats[2]
+        occluded = self._call(self.occluders[bounce], rays, s_org, s_dir,
+                              s_tmax)
         radiance = state.radiance + torch.where(
             (want & ~occluded)[:, None], contrib, 0.0)
         return state._replace(radiance=radiance, rays=rays)

@@ -106,8 +106,20 @@ def invert_affine(m: np.ndarray) -> np.ndarray:
     return out
 
 
-def to_device(scene: Scene, device="cpu", pad_to: int = 8) -> DeviceScene:
-    """Pack a host Scene into a DeviceScene on ``device``."""
+def torch_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where torch finds none
+    raises RuntimeError (there is no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but torch "
+                           "finds no CUDA device")
+    return device
+
+
+def to_device(scene: Scene, device="cuda", pad_to: int = 8) -> DeviceScene:
+    """Pack a host Scene into a DeviceScene on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    device = torch_device(device)
     scene.validate()
     if not scene.instances:
         raise ValueError("scene has no instances")

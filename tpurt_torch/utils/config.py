@@ -28,11 +28,16 @@ class RenderConfig:
     seed: int = 0
     exposure: float = 1.0
     # "auto" | "brute" | "bvh" | "bvh_packet" | "bvh_pair" | "bvh_tile";
-    # the port implements bvh_tile ("auto" resolves to it)
+    # the port implements bvh_tile ("auto" resolves to it) and bvh_pair
     intersector: str = "auto"
     # tile-accel instancing: "auto" | "flatten" | "two_level"
     instancing: str = "auto"
-    # pair-wavefront / budget-path pair capacities (reference variants)
+    # bvh_pair: static (ray, cluster) pair capacity per trace = rays ×
+    # pairs_per_ray; bvh_tile: per-tile cluster clamp (0 = all clusters,
+    # exact). An overflow of either is flagged and render_scene retries
+    # with doubled budgets. The pairs_avg* capacities size the
+    # reference's pair-segment launches, which the port does not carry;
+    # they are kept (and doubled) so configs stay interchangeable.
     pairs_per_ray: int = 8
     pairs_per_tile: int = 0
     pairs_avg: int = 48

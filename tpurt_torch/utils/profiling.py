@@ -1,11 +1,15 @@
 """Where one render batch spends its device time.
 
     python3 -m tpurt_torch.utils.profiling [--preset bunny] [--out FILE]
+        [--intersector bvh_tile|bvh_pair] [--pairs-per-tile K]
+        [--pairs-per-ray K]
 
-Renders one warm batch of the preset on CUDA twice: once with CUDA events
-around every stage of the staged loop (raygen, trace[b], shade[b],
-occlude[b], resolve) and once under ``torch.profiler`` for device time by
-kernel name and the device's busy share of the batch's wall time. Prints
+Renders one warm batch of the preset on CUDA three times, with the given
+intersector and pair budgets (no budget retries; the overflow flag is
+reported): once by the host clock, once with CUDA events around every
+stage of the staged loop (raygen, trace[b], shade[b], occlude[b],
+resolve) and once under ``torch.profiler`` for device time by kernel
+name and the device's busy share of the batch's wall time. Prints
 one JSON object (and writes it to ``--out``) with the card's name and
 power limit beside every number. Needs a CUDA device.
 """
@@ -56,12 +60,12 @@ def _stage_times(renderer, cam, seed):
             for i, (name, ev) in enumerate(marks) if i}
 
 
-def profile_batch(preset: str = "bunny") -> dict:
+def profile_batch(preset: str = "bunny", **overrides) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch import kernels
     from tpurt_torch.render import build_accel
     from tpurt_torch.render.intersectors import scene_meta
     from tpurt_torch.render.staged import StagedRenderer
@@ -73,10 +77,11 @@ def profile_batch(preset: str = "bunny") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     device = torch.device("cuda", 0)
-    config = get_config(preset)
+    config = get_config(preset, **overrides)
     config = get_config(preset, spp=config.spp_per_batch,
                         live_caps=autotune.live_caps_for(config),
-                        shadow_caps=autotune.want_caps_for(config))
+                        shadow_caps=autotune.want_caps_for(config),
+                        **overrides)
     scene = load_scene(config.scene)
     meta = scene_meta(scene)
     ds = to_device(scene, device)
@@ -95,7 +100,7 @@ def profile_batch(preset: str = "bunny") -> dict:
 
     stages = _stage_times(renderer, cam, seed)
 
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -116,6 +121,10 @@ def profile_batch(preset: str = "bunny") -> dict:
         "preset": preset,
         "resolution": f"{config.width}x{config.height}",
         "spp_per_batch": config.spp_per_batch,
+        "intersector": config.resolved_intersector(),
+        "pairs_per_tile": config.pairs_per_tile,
+        "pairs_per_ray": config.pairs_per_ray,
+        "pair_overflow": bool(counts[2] > 0),
         "rays": rays,
         "batch_s": wall,
         "mrays_per_s": rays / wall / 1e6,
@@ -123,7 +132,7 @@ def profile_batch(preset: str = "bunny") -> dict:
         "profiled_batch_s": prof_wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (prof_wall * 1e3)),
-        "launches": tw.launch_counts(),
+        "launches": kernels.launch_counts(),
         "kernels_ms": [{"name": k[:120], "ms": ms, "calls": n}
                        for k, ms, n in rows[:30]],
     }
@@ -132,9 +141,18 @@ def profile_batch(preset: str = "bunny") -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="bunny")
+    ap.add_argument("--intersector", default="auto",
+                    choices=("auto", "bvh_tile", "bvh_pair"))
+    ap.add_argument("--pairs-per-tile", type=int, default=None)
+    ap.add_argument("--pairs-per-ray", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    result = profile_batch(args.preset)
+    overrides = dict(intersector=args.intersector)
+    if args.pairs_per_tile is not None:
+        overrides["pairs_per_tile"] = args.pairs_per_tile
+    if args.pairs_per_ray is not None:
+        overrides["pairs_per_ray"] = args.pairs_per_ray
+    result = profile_batch(args.preset, **overrides)
     text = json.dumps(result, indent=1)
     if args.out:
         with open(args.out, "w") as f:

@@ -13,39 +13,55 @@ Phases, in order; any failure exits nonzero and prints no result:
   3. kernels  — run each kernel wrapper on the waves its main path gives
                 it and hold the result against its plain PyTorch version
                 on the same inputs: the entry build (K2) and the exact
-                mask (K3, both outputs) bit-equal; the tile loop (K1) with
-                the slot equal on ≥ 99.99% of live rays, bt within 1e-6
-                relative and the instance equal on those; the pair test
-                (K6) bit-equal on all four outputs. Waves: the first
+                mask (K3, both outputs) bit-equal; the tile loop (K1, each
+                mode) and the grid over pairs (K4) with the slot equal on
+                ≥ 99.99% of live rays, bt within 1e-6 relative and the
+                instance equal on those (K4 any-hit: the occlusion flag
+                equal); the pair test (K6) bit-equal on all four outputs;
+                the packet walk (K5) bit-equal on all four outputs and its
+                group counters over a 65,536-ray slice. Waves: the first
                 bounce and shadow waves of a bunny 800×600 × 8 spp batch
-                (K2, K3, K1 flat); the pair lists of its primary and first
-                shadow waves (K6); of a sponza 1920×1080 × 2 spp batch
+                (K2, K3, K1 flat; K1's pair segments over the bunny config's
+                256-tile chunks, TPURT_ENTRY_ROWS=0; K4 over its chunks at
+                the config's pair budgets, TPURT_PAIR_LOOP=0; one launch a
+                wave, as the main path launches them); the pair
+                lists of its primary and first shadow waves (K6); its
+                primary, bounce and shadow waves through the bunny's
+                packet BVH (K5); of a sponza 1920×1080 × 2 spp batch
                 through supercluster entries (K2 over the 414 superboxes,
                 K1 two-level + sc) and through per-cluster entries (K2
                 over the 2430 instance-cluster boxes, K1 two-level); the
                 primary and first shadow waves of a cornell 512×512 ×
-                16 spp batch (K1 all-pairs). Both sides are timed with
-                CUDA events, and each kernel's bound (the least time the
-                card could take for the same work) is computed from the
-                wave's shapes and data;
+                16 spp batch (K1 all-pairs, K4 all-pairs). Both sides are
+                timed with CUDA events, and each kernel's bound (the least
+                time the card could take for the same work) is computed
+                from the wave's shapes and data;
   4. render   — each preset at its own size, one batch, through
                 render_scene(device="cuda"): bunny (8 spp), sponza (2
                 spp), cornell (16 spp) and hello_triangle (1 spp), the
                 sponza config over the small instanced stand-in
                 sponza_standin(8, 3), whose 126 instance-clusters take
-                per-cluster entries (K1 two-level without sc), and the two
+                per-cluster entries (K1 two-level without sc), the two
                 pair-budget paths on the bunny: bunny_budget
                 (pairs_per_tile=256: K3 + clamp + K1 under the budget
                 retries; it must end without overflow, with an image
                 bit-equal to the bunny path's, and prints its retries and
                 per-wave maximum entries per tile) and bunny_pair
                 (intersector bvh_pair: K6; prints the live pairs per ray
-                per wave). Each runs once as warmup, then once timed with
-                the launch counters zeroed just before it and read just
-                after; its kernels must have launched, the image must be
-                finite and bit-equal to the warmup's (same seed). Then the
-                golden fixtures on the card against tests/golden/data/*.npz:
-                bunny (also through bvh_pair), hello_triangle and cornell
+                per wave), and the paths of the last three kernels:
+                bunny_packet (intersector bvh_packet: K5), bunny_seg
+                (TPURT_ENTRY_ROWS=0: K3 + K1 pair segments, image
+                bit-equal to the bunny path's), bunny_grid and
+                cornell_grid (TPURT_PAIR_LOOP=0: K4, flat and all-pairs).
+                Each runs once as warmup, then once timed with the launch
+                counters zeroed just before it and read just after, its
+                switches set around both and restored; its kernels must
+                have launched, it must end without overflow, and the image
+                must be finite and bit-equal to the warmup's (same seed).
+                Then the golden fixtures on the card against
+                tests/golden/data/*.npz: bunny (also through bvh_pair,
+                bvh_packet, TPURT_ENTRY_ROWS=0 and TPURT_PAIR_LOOP=0),
+                hello_triangle and cornell (also through TPURT_PAIR_LOOP=0)
                 at RMSE ≤ 1e-3; sponza and cornell_pt at an energy bias ≤
                 1e-3 with their RMSE printed (sponza also under 2% of
                 pixels off by more than 1e-3; ROADMAP §3 says why their
@@ -269,17 +285,13 @@ def check_k6(label, raw, accel, pairs_per_ray=8):
                         + rows_bytes + slots * 16, live * 96 * MT_OPS))
 
 
-def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
-    """K1 against tileloop_plain on one wave, same entries and tables."""
+def hold_to_k1_bars(kernel, label, k, p, tmv, n_entries):
+    """A tile kernel's outputs against its plain version's, held to K1's
+    bars: slot equal on ≥ 99.99% of live rays, bt within 1e-6 relative and
+    the instance equal where the slot is. Returns (max abs err of bt/bu/bv
+    where the slot is equal, slot mismatches)."""
     import torch
 
-    from tpurt_torch.kernels import tilewave as tw
-
-    org, dirn, inv_d, tmv = wave
-    args = (org, dirn, inv_d, tmv, rows, entry, counts, scale, any_hit)
-    k = tw.tileloop_cuda(*args, **tl)
-    p = tw.tileloop_plain(*args, **tl)
-    torch.cuda.synchronize()
     live = tmv >= 0.0
     n_live = int(live.sum())
     same = live & (k[3] == p[3])
@@ -292,31 +304,206 @@ def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
     max_rel = float(rel[same].max()) if any_same else 0.0
     max_abs = float(diff[same].max()) if any_same else 0.0
     bi_bad = int((same & (k[4] != p[4])).sum()) if len(k) == 5 else 0
-    ms = cuda_ms(lambda: tw.tileloop_cuda(*args, **tl), 10)
-    plain_ms = cuda_ms(lambda: tw.tileloop_plain(*args, **tl), 1)
     n_hit = int((live & (p[3] >= 0)).sum())
-    # each ray read once, the rows, tables and entries once, the outputs
-    # once; at least one box test per ray of a tile per entry it walks
-    n = org.shape[0]
-    table_bytes = sum(t.numel() * 4 for t in tl.values() if t is not None)
-    k1_bound = bound(n * 40 + rows.numel() * 4 + table_bytes
-                     + entry.numel() * 4 + counts.numel() * 4
-                     + n * 4 * len(k), float(counts.sum()) * 1024 * SLAB_OPS)
-    log(f"[kernels] K1 {label}: {n_live} live rays ({n_hit} hit), "
+    log(f"[kernels] {kernel} {label}: {n_live} live rays ({n_hit} hit), "
         f"{n_live - int(same.sum())} slot mismatches (agree {agree:.6f}), "
         f"bt max rel err {max_rel:.3e}, max abs err (bt/bu/bv) "
-        f"{max_abs:.3e}, {bi_bad} instance mismatches, "
-        f"{int(counts.sum())} entries; {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{max_abs:.3e}, {bi_bad} instance mismatches, {n_entries} entries")
     if agree < K1_SLOT_AGREE or max_rel > K1_T_RTOL or bi_bad or not n_hit:
-        raise AssertionError(f"K1 {label} disagrees with tileloop_plain")
+        raise AssertionError(f"{kernel} {label} disagrees with its plain "
+                             "version")
+    return max_abs, n_live - int(same.sum())
+
+
+def tile_bound(n, n_out, rows, tl, list_bytes, n_entries) -> dict:
+    """K1/K4: each ray read once (org, dirn, inv_d, tmax), the rows,
+    tables and entry lists once, the outputs once; at least one box test
+    per ray of a tile per entry it walks."""
+    table_bytes = sum(t.numel() * 4 for t in tl.values() if t is not None)
+    return bound(n * 40 + rows.numel() * 4 + table_bytes + list_bytes
+                 + n * 4 * n_out, float(n_entries) * 1024 * SLAB_OPS)
+
+
+def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
+    """K1 against tileloop_plain on one wave, same entries and tables."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    org, dirn, inv_d, tmv = wave
+    args = (org, dirn, inv_d, tmv, rows, entry, counts, scale, any_hit)
+    k = tw.tileloop_cuda(*args, **tl)
+    p = tw.tileloop_plain(*args, **tl)
+    torch.cuda.synchronize()
+    n_entries = int(counts.sum())
+    max_abs, bad = hold_to_k1_bars("K1", label, k, p, tmv, n_entries)
+    ms = cuda_ms(lambda: tw.tileloop_cuda(*args, **tl), 10)
+    plain_ms = cuda_ms(lambda: tw.tileloop_plain(*args, **tl), 1)
+    log(f"[kernels] K1 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                mismatches=n_live - int(same.sum()), **k1_bound)
+                mismatches=bad,
+                **tile_bound(org.shape[0], len(k), rows, tl,
+                             entry.numel() * 4 + counts.numel() * 4,
+                             n_entries))
 
 
-def k1_record(name, closest, anyhit, **extra):
+def check_seg(label, wave, accel, any_hit, pcap):
+    """K1's pair-segment mode against tileloop_seg_plain on one sorted
+    wave, with the lists of the main path: K3 per 256-tile launch chunk
+    at capacity ``pcap`` (no clamp), the chunks' lists end to end, one
+    launch."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    lo, hi, rows = accel.cluster_lo, accel.cluster_hi, accel.tri_rows
+    scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    off, pair_cl, n_pairs, over = tw._wave_segments(
+        *wave, lo, hi, scale, tw.TILES_PER_LAUNCH, exact=True,
+        pairs_per_tile=0, pcap=pcap)
+    args = (*wave, rows, off, pair_cl, scale, any_hit)
+    k = tw.tileloop_seg_cuda(*args)
+    p = tw.tileloop_seg_plain(*args)
+    torch.cuda.synchronize()
+    n_chunks = -(-(off.shape[0] - 1) // tw.TILES_PER_LAUNCH)
+    kind = "any-hit" if any_hit else "closest"
+    max_abs, bad = hold_to_k1_bars(
+        "K1-seg", f"{kind} ({label}, {n_chunks} chunks of "
+        f"{tw.TILES_PER_LAUNCH} tiles at pcap {pcap}, overflow {bool(over)})",
+        k, p, wave[3], int(n_pairs))
+    if bool(over):
+        raise AssertionError(f"K1-seg {label}: the pair list overflowed")
+    ms = cuda_ms(lambda: tw.tileloop_seg_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: tw.tileloop_seg_plain(*args), 1)
+    log(f"[kernels] K1-seg {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                mismatches=bad,
+                **tile_bound(wave[0].shape[0], len(k), rows, {},
+                             off.numel() * 4 + pair_cl.numel() * 4,
+                             int(n_pairs)))
+
+
+def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
+    """K4 against tilegrid_plain on one wave, with the lists of the main
+    path: the interval mask per launch chunk, no clamp, ``avg`` pairs a
+    tile doubled until no chunk overflows (as the budget retries do), the
+    chunks' lists end to end; every (tile, cluster) pair for all-pairs."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    lo, hi, rows = accel.cluster_lo, accel.cluster_hi, accel.tri_rows
+    n_c = lo.shape[0]
+    org, dirn, inv_d, tmv = wave
+    n_tiles = org.shape[0] // tw.TILE
+    while True:
+        chunk = (n_tiles if all_pairs else
+                 min(n_tiles, max(1, tw.MAX_PAIRS_PER_LAUNCH // avg), 32767))
+        launches, _, over = tw._wave_grid_lists(
+            org, dirn, tmv, lo, hi, chunk, n_clusters=n_c,
+            pair_cap=chunk * (n_c if all_pairs else avg),
+            per_tile_clamp=n_c + 1, all_pairs=all_pairs)
+        if not bool(over) or avg >= n_c + 1:
+            break
+        avg = min(2 * avg, n_c + 1)
+    if len(launches) != 1:
+        raise AssertionError(f"K4 {label}: {len(launches)} launches")
+    packed = launches[0][2]
+    n_pairs = int(((packed & 0xFFFF) > 0).sum())
+    args = (org, dirn, inv_d, tmv, rows, packed, any_hit)
+    kw = dict(all_pairs=all_pairs, **tl)
+    k = tw.tilegrid_cuda(*args, **kw)
+    p = tw.tilegrid_plain(*args, **kw)
+    torch.cuda.synchronize()
+    kind = "any-hit" if any_hit else "closest"
+    detail = (f"{kind} ({label}, {-(-n_tiles // chunk)} chunks of {chunk} "
+              f"tiles at {avg} pairs a tile, {packed.numel()} slots)")
+    if any_hit:
+        # an any-hit caller reads the occlusion flag only; the early-out
+        # leaves the other fields where the tile stopped
+        bad = int(((k[3] >= 0) != (p[3] >= 0)).sum())
+        max_abs = 0.0
+        log(f"[kernels] K4 {detail}: {bad} occlusion flags differ from the "
+            f"plain version, {int((p[3] >= 0).sum())} occluded, {n_pairs} "
+            "real pairs")
+        if bad:
+            raise AssertionError(f"K4 {label} disagrees with tilegrid_plain")
+    else:
+        max_abs, bad = hold_to_k1_bars("K4", detail, k, p, tmv, n_pairs)
+    if bool(over):
+        raise AssertionError(f"K4 {label}: the pair list overflowed")
+    ms = cuda_ms(lambda: tw.tilegrid_cuda(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: tw.tilegrid_plain(*args, **kw), 1)
+    # beside the bound: the time if every pair tested all 96 triangles of
+    # its cluster against all 1024 rays (no box culling)
+    all_tests_ms = n_pairs * 1024 * (96 * MT_OPS + 9 * SLAB_OPS) \
+        / F32_OPS_S * 1e3
+    log(f"[kernels] K4 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms; every "
+        f"triangle of every pair at the f32 rate {all_tests_ms:.3f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                mismatches=bad,
+                **tile_bound(org.shape[0], len(k), rows, tl,
+                             packed.numel() * 4, n_pairs))
+
+
+def check_k5(label, raw, tables, any_hit, n_plain=65536):
+    """K5 against packet_plain on one wave as the packet intersector hands
+    it over (no sort, padded to whole 2048-ray groups): all four outputs
+    and the group counters bit-equal on a contiguous ``n_plain``-ray slice
+    from the middle of the wave (the walk is per ray)."""
+    import torch
+
+    from tpurt_torch.kernels import packet as pk
+
+    org, dirn, tmax = raw
+    tmv = torch.where(torch.isfinite(tmax), tmax, pk.BIG)
+    n = org.shape[0]
+    pad = (-n) % pk.PACKET
+    if pad:
+        dev = org.device
+        org = torch.cat([org, torch.zeros((pad, 3), device=dev)])
+        dirn = torch.cat([dirn, torch.ones((pad, 3), device=dev)])
+        tmv = torch.cat([tmv, torch.full((pad,), -1.0, device=dev)])
+    org, dirn, tmv = (x.contiguous() for x in (org, dirn, tmv))
+    n = org.shape[0]
+    s0 = (n // 2) // pk.PACKET * pk.PACKET
+    s1 = min(n, s0 + n_plain)
+    sl = slice(s0, s1)
+    k = pk.packet_cuda(tables, org, dirn, tmv, any_hit)
+    p = pk.packet_plain(tables, org[sl], dirn[sl], tmv[sl], any_hit)
+    torch.cuda.synchronize()
+    gs = slice(s0 // pk.PACKET, s1 // pk.PACKET)
+    bad = sum(int((a[sl] != b).sum()) for a, b in zip(k[:4], p[:4]))
+    bad += int((k[4][gs] != p[4]).sum())
+    err = max(float((a[sl] - b).abs().max()) for a, b in zip(k[:4], p[:4]))
+    ms = cuda_ms(lambda: pk.packet_cuda(tables, org, dirn, tmv, any_hit), 10)
+    plain_ms = cuda_ms(lambda: pk.packet_plain(tables, org[sl], dirn[sl],
+                                               tmv[sl], any_hit), 1)
+    steps, leaf_rows = (float(x) for x in k[4].sum(dim=0))
+    n_alive = int((tmv >= 0).sum())
+    n_hit = int((k[3] >= 0).sum())
+    log(f"[kernels] K5 {label}: {n} rays ({n_alive} alive, {n_hit} hit), "
+        f"{steps:.0f} node steps and {leaf_rows:.0f} leaf rows "
+        f"({steps / max(n_alive, 1):.1f} and {leaf_rows / max(n_alive, 1):.1f}"
+        f" per alive ray); {bad} values differ from the plain version on "
+        f"rays {s0}..{s1} (outputs and {s1 // pk.PACKET - s0 // pk.PACKET} "
+        f"group counters), max abs err {err:.3e}; {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms on {s1 - s0} rays")
+    if bad or not n_hit:
+        raise AssertionError(f"K5 {label} is not bit-equal to packet_plain")
+    n_nodes = tables[0].shape[0]
+    return dict(ms=ms, plain_ms=plain_ms, plain_rays=s1 - s0,
+                max_abs_err=err, mismatches=bad, node_steps=steps,
+                leaf_rows=leaf_rows,
+                **bound(n * 28 + n_nodes * 36 + tables[9].numel() * 4
+                        + n * 16 + k[4].shape[0] * 8,
+                        steps * SLAB_OPS + leaf_rows * 12 * MT_OPS))
+
+
+def k1_record(name, closest, anyhit, source="tpurt_torch/csrc/tileloop.cu",
+              replaces="tpurt/kernels/tilewave.py:1191", **extra):
     return dict(
-        name=name, route="cuda", source="tpurt_torch/csrc/tileloop.cu",
-        replaces="tpurt/kernels/tilewave.py:1191",
+        name=name, route="cuda", source=source, replaces=replaces,
         max_abs_err=max(closest["max_abs_err"], anyhit["max_abs_err"]),
         ms=closest["ms"], plain_ms=closest["plain_ms"],
         bound_ms=closest["bound_ms"], bound_by=closest["bound_by"],
@@ -330,6 +517,12 @@ def check_kernels(device) -> list:
     """Phase 3: every kernel variant against its plain version at the
     shapes its main path gives it."""
     import torch
+
+    from tpurt_torch.bvh.cluster import build_packet_accel
+    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
 
     # bunny 800×600 × 8 spp: K2, K3 and K1 flat on the sorted waves, K6
     # on the pair lists of the primary and shadow waves
@@ -347,10 +540,37 @@ def check_kernels(device) -> list:
     del entry
     k3 = {kind: check_k3(f"bunny {kind}", waves[kind], lo, hi)
           for kind in ("bounce", "shadow")}
+    # past the entry-row gate: K1's pair segments (TPURT_ENTRY_ROWS=0) at
+    # the bunny config's pair-segment capacity, and K4 (TPURT_PAIR_LOOP=0)
+    # at its per-wave pair budgets
+    cfg = get_config("bunny")
+    cap_avg = max(cfg.pairs_avg, cfg.pairs_avg_bounce, cfg.pairs_avg_shadow)
+    pcap = min(tw.TILES_PER_LAUNCH * min(cap_avg, lo.shape[0]),
+               tw.MAX_PAIRS_PER_LAUNCH)
+    seg = {kind: check_seg(f"bunny {kind}", waves[kind], accel,
+                           kind == "shadow", pcap)
+           for kind in ("bounce", "shadow")}
+    grid = {kind: check_grid(f"bunny {kind}", waves[kind], accel,
+                             kind == "shadow", avg)
+            for kind, avg in (("bounce", cfg.pairs_avg_bounce),
+                              ("shadow", cfg.pairs_avg_shadow))}
     del waves
     k6 = {kind: check_k6(f"bunny {kind}", raw[kind], accel)
           for kind in ("primary", "shadow")}
-    del accel, raw
+    del accel
+    torch.cuda.empty_cache()
+
+    # the packet BVH of the same scene: K5 on the same waves
+    scene = load_scene(cfg.scene)
+    pacc = build_packet_accel(None, scene_meta(scene), scene=scene).to(device)
+    tables = tuple(pacc[:10])
+    log(f"[kernels] bunny packet BVH: {pacc.n_nodes} nodes, {pacc.n_rows} "
+        f"rows of 12 triangles, "
+        f"{int((pacc.node_count > 0).sum())} leaves")
+    k5 = {kind: check_k5(f"bunny {kind}", raw[kind], tables,
+                         kind == "shadow")
+          for kind in ("primary", "bounce", "shadow")}
+    del pacc, tables, raw
     torch.cuda.empty_cache()
 
     # sponza 1920×1080 × 2 spp: supercluster and per-cluster entries
@@ -377,8 +597,6 @@ def check_kernels(device) -> list:
     torch.cuda.empty_cache()
 
     # cornell 512×512 × 16 spp: all-pairs (no sort, one cluster row)
-    from tpurt_torch.kernels import tilewave as tw
-
     accel, waves, _ = batch_waves("cornell", device, 16, sort=False)
     n_c = accel.cluster_lo.shape[0]
     ap = {}
@@ -391,6 +609,9 @@ def check_kernels(device) -> list:
             f"all-pairs {'any-hit' if any_hit else 'closest'} (cornell "
             f"{kind}, C = {n_c})", waves[kind], accel.tri_rows, entry,
             counts, 0.0, any_hit)
+        grid[f"allpairs_{kind}"] = check_grid(
+            f"all-pairs cornell {kind}, C = {n_c}", waves[kind], accel,
+            any_hit, n_c, all_pairs=True)
     del accel, waves
 
     k2_all = [k2_bunny, *k2_sponza.values()]
@@ -433,6 +654,25 @@ def check_kernels(device) -> list:
                   k1[("cluster", "shadow")]),
         k1_record("tileloop_tl_sc", k1[("sc", "bounce")],
                   k1[("sc", "shadow")]),
+        k1_record("tileloop_seg", seg["bounce"], seg["shadow"]),
+        k1_record("tilegrid", grid["bounce"], grid["shadow"],
+                  replaces="tpurt/kernels/tilewave.py:276"),
+        k1_record("tilegrid_allpairs", grid["allpairs_primary"],
+                  grid["allpairs_shadow"],
+                  replaces="tpurt/kernels/tilewave.py:276"),
+        dict(name="packet", route="cuda", source="tpurt_torch/csrc/packet.cu",
+             replaces="tpurt/kernels/packet.py:143",
+             max_abs_err=max(r["max_abs_err"] for r in k5.values()),
+             ms=k5["bounce"]["ms"], plain_ms=k5["bounce"]["plain_ms"],
+             plain_rays=k5["bounce"]["plain_rays"],
+             bound_ms=k5["bounce"]["bound_ms"],
+             bound_by=k5["bounce"]["bound_by"], library_ms=None,
+             mismatches=sum(r["mismatches"] for r in k5.values()),
+             **{f"{kind}_{key}": k5[kind][key]
+                for kind in ("primary", "shadow")
+                for key in ("ms", "plain_ms", "bound_ms")},
+             node_steps={kind: r["node_steps"] for kind, r in k5.items()},
+             leaf_rows={kind: r["leaf_rows"] for kind, r in k5.items()}),
     ]
 
 
@@ -450,18 +690,27 @@ def golden_configs() -> dict:
 
 # each main path: (preset, spp per batch, the stand-in's column segments
 # and rings or None for the preset's own scene, config overrides, the
-# kernels it must launch)
+# environment switches set around its renders, the kernels it must launch)
 PATHS = {
-    "bunny": ("bunny", 8, None, {}, ("entries", "tileloop")),
-    "sponza": ("sponza", 2, None, {}, ("entries", "tileloop_tl_sc")),
-    "cornell": ("cornell", 16, None, {}, ("tileloop_allpairs",)),
-    "hello_triangle": ("hello_triangle", 1, None, {},
+    "bunny": ("bunny", 8, None, {}, {}, ("entries", "tileloop")),
+    "sponza": ("sponza", 2, None, {}, {}, ("entries", "tileloop_tl_sc")),
+    "cornell": ("cornell", 16, None, {}, {}, ("tileloop_allpairs",)),
+    "hello_triangle": ("hello_triangle", 1, None, {}, {},
                        ("tileloop_allpairs",)),
-    "sponza_small": ("sponza", 2, (8, 3), {}, ("entries", "tileloop_tl")),
-    "bunny_budget": ("bunny", 8, None, dict(pairs_per_tile=256),
+    "sponza_small": ("sponza", 2, (8, 3), {}, {},
+                     ("entries", "tileloop_tl")),
+    "bunny_budget": ("bunny", 8, None, dict(pairs_per_tile=256), {},
                      ("exact_mask", "tileloop")),
-    "bunny_pair": ("bunny", 8, None, dict(intersector="bvh_pair"),
+    "bunny_pair": ("bunny", 8, None, dict(intersector="bvh_pair"), {},
                    ("pair",)),
+    "bunny_packet": ("bunny", 8, None, dict(intersector="bvh_packet"), {},
+                     ("packet",)),
+    "bunny_seg": ("bunny", 8, None, {}, dict(TPURT_ENTRY_ROWS="0"),
+                  ("exact_mask", "tileloop_seg")),
+    "bunny_grid": ("bunny", 8, None, {}, dict(TPURT_PAIR_LOOP="0"),
+                   ("tilegrid",)),
+    "cornell_grid": ("cornell", 16, None, {}, dict(TPURT_PAIR_LOOP="0"),
+                     ("tilegrid_allpairs",)),
 }
 # waves of one batch in the order the staged loop traces them (2 bounces)
 WAVE_NAMES = ("trace0", "occlude0", "trace1", "occlude1", "trace2",
@@ -501,6 +750,22 @@ def wave_log():
         tw._clamp_rows, pw._cull_expand = clamp_rows, cull_expand
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """The switches in ``env`` set inside the block, the old values (or
+    their absence) restored after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def render_path(name: str, device):
     """One batch of the path at its preset's size: warmup, then a timed
     run with the launch counters zeroed just before it. Returns its
@@ -514,20 +779,21 @@ def render_path(name: str, device):
     from tpurt_torch.scene.procedural import sponza_standin
     from tpurt_torch.utils.config import get_config
 
-    preset, spp, standin, over, kernels = PATHS[name]
+    preset, spp, standin, over, env, kernels = PATHS[name]
     config = get_config(preset, spp=spp, **over)
     scene = (load_scene(config.scene) if standin is None
              else sponza_standin(*standin))
-    with wave_log() as waves:
-        warm, _ = render_scene(config, device=device, scene=scene)
-    kn.reset_launch_counts()
-    state, stats = render_scene(config, device=device, scene=scene)
-    launches = kn.launch_counts()
+    with environ(env):
+        with wave_log() as waves:
+            warm, _ = render_scene(config, device=device, scene=scene)
+        kn.reset_launch_counts()
+        state, stats = render_scene(config, device=device, scene=scene)
+        launches = kn.launch_counts()
     img = fb.resolve(state)
     finite = bool(torch.isfinite(img).all())
     same = bool(torch.equal(warm.accum, state.accum))
     log(f"[render] {name} {config.width}x{config.height} x {stats['spp']} "
-        f"spp: {stats['rays_traced']:.0f} rays ({stats['rays_closest']:.0f} "
+        f"spp{' ' + str(env) if env else ''}: {stats['rays_traced']:.0f} rays ({stats['rays_closest']:.0f} "
         f"closest + {stats['rays_shadow']:.0f} shadow) in "
         f"{stats['elapsed_s']:.4f} s = {stats['mrays_per_s']:.4f} Mrays/s; "
         f"live {stats['live_counts']}, want {stats['want_counts']}, "
@@ -562,29 +828,39 @@ def golden_phase(device) -> None:
     from tpurt_torch.utils.config import get_config
 
     goldens = golden_configs()
-    for name, over in (("bunny", {}), ("hello_triangle", {}),
-                       ("cornell", {}), ("sponza", {}), ("cornell_pt", {}),
-                       ("bunny", dict(intersector="bvh_pair")),
-                       ("bunny", dict(intersector="bvh_pair",
-                                      pairs_per_ray=1))):
+    for name, over, env in (
+            ("bunny", {}, {}), ("hello_triangle", {}, {}),
+            ("cornell", {}, {}), ("sponza", {}, {}), ("cornell_pt", {}, {}),
+            ("bunny", dict(intersector="bvh_pair"), {}),
+            ("bunny", dict(intersector="bvh_pair", pairs_per_ray=1), {}),
+            ("bunny", dict(intersector="bvh_packet"), {}),
+            ("bunny", {}, dict(TPURT_ENTRY_ROWS="0")),
+            # at the golden's 64×48 one 1024-ray tile spans the screen,
+            # so the primary interval mask holds ~every cluster: the
+            # primary budget starts at the bounce waves' 384 a tile (the
+            # default 48 cannot reach it in the 3 retries)
+            ("bunny", dict(pairs_avg=384), dict(TPURT_PAIR_LOOP="0")),
+            ("cornell", {}, dict(TPURT_PAIR_LOOP="0"))):
         want = np.load(os.path.join(ROOT, "tests", "golden", "data",
                                     f"{name}.npz"))["image"]
         cfg = get_config(name, **dict(goldens[name], **over))
-        state, stats = render_scene(cfg, device=device)
+        with environ(env):
+            state, stats = render_scene(cfg, device=device)
         img = fb.resolve(state).cpu().numpy()
         rmse = float(np.sqrt(np.mean((img - want) ** 2)))
         bias = float(img.mean()) - float(want.mean())
         off = float((np.abs(img - want) > 1e-3).mean())
-        log(f"[render] golden {name} {over or ''} {cfg.width}x{cfg.height} "
+        log(f"[render] golden {name} {over or ''}{env or ''} "
+            f"{cfg.width}x{cfg.height} "
             f"x {cfg.spp} spp: RMSE {rmse:.3e}, energy bias {bias:+.3e}, "
             f"{off:.4%} of pixels off by more than 1e-3; budget_retries "
             f"{stats['budget_retries']}, pair_overflow "
             f"{stats['pair_overflow']}")
         if img.shape != want.shape or not np.isfinite(img).all():
-            raise AssertionError(f"golden {name}: bad image")
+            raise AssertionError(f"golden {name} {over}{env}: bad image")
         if stats["pair_overflow"]:
-            raise AssertionError(f"golden {name} {over}: ended with a pair "
-                                 "overflow")
+            raise AssertionError(f"golden {name} {over}{env}: ended with a "
+                                 "pair overflow")
         if over.get("pairs_per_ray") == 1:
             if stats["budget_retries"] < 1:
                 raise AssertionError("golden bunny with pairs_per_ray=1: "
@@ -596,7 +872,8 @@ def golden_phase(device) -> None:
             if name == "sponza" and not off < 0.02:
                 raise AssertionError("golden sponza: too many pixels off")
         elif not rmse <= GOLDEN_RMSE:
-            raise AssertionError(f"golden {name}: RMSE over the limit")
+            raise AssertionError(f"golden {name} {over}{env}: RMSE over the "
+                                 "limit")
 
 
 def main() -> int:
@@ -631,11 +908,15 @@ def main() -> int:
         counts, images[name] = render_path(name, device)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    same = bool(torch.equal(images["bunny_budget"], images["bunny"]))
-    log(f"[render] bunny_budget image bit-equal to the bunny path's {same}")
-    if not same:
-        raise AssertionError("bunny_budget: image differs from the bunny "
-                             "path's")
+    # the clamp at its last attempt keeps every cluster, and the pair
+    # segments hold the entry rows' entries in the same order: both must
+    # give the bunny path's image bit for bit
+    for name in ("bunny_budget", "bunny_seg"):
+        same = bool(torch.equal(images[name], images["bunny"]))
+        log(f"[render] {name} image bit-equal to the bunny path's {same}")
+        if not same:
+            raise AssertionError(f"{name}: image differs from the bunny "
+                                 "path's")
     del images
     golden_phase(device)
     for k in report:

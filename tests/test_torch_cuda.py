@@ -7,12 +7,14 @@ port's dependencies are installed (a GPU machine without jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances (as chip_smoke.py): the entry build and the exact mask
-bit-equal; the pair test bit-equal (one thread per slot, the plain
-version's op order, no contraction, IEEE division); the traversal loop
-with the slot equal on ≥ 99.99% of live rays and bt within 1e-6 relative
-on those; a render on the card within RMSE 1e-3 of the same render on
-the CPU (the plain versions, and torch's CPU and CUDA elementwise kernels
-round transcendentals differently).
+bit-equal; the pair test and the packet walk bit-equal (one thread per
+slot or ray, the plain version's op order, no contraction, IEEE
+division); the traversal loop (every mode) and the grid over pairs with
+the slot equal on ≥ 99.99% of live rays and bt within 1e-6 relative on
+those (the grid's any-hit: the occlusion flag equal); a render on the
+card within RMSE 1e-3 of the same render on the CPU (the plain versions,
+and torch's CPU and CUDA elementwise kernels round transcendentals
+differently).
 """
 
 import numpy as np
@@ -125,12 +127,10 @@ def test_render_on_cuda_matches_cpu(cuda_device):
     assert stats["rays_traced"] > 0
 
 
-def _k1_modes_case(mode, device):
-    """Seeded rays, tables and sorted entries for one K1 mode: all-pairs
-    on the Cornell box, two-level on sponza_standin(8, 3), two-level with
-    supercluster entries on the full sponza_standin()."""
-    rng = np.random.default_rng(11)
-    n = 3 * tw.TILE
+def _k1_modes_accel(mode, device):
+    """The accel of one tile-kernel mode on ``device``: the Cornell box
+    (all-pairs), sponza_standin(8, 3) two-level, or the full
+    sponza_standin() two-level with superclusters."""
     if mode == "allpairs":
         scene = cornell_box(path_tracer=True)
         accel = build_pair_accel(None, scene_meta(scene), scene=scene)
@@ -138,7 +138,18 @@ def _k1_modes_case(mode, device):
         scene = sponza_standin() if mode == "tl_sc" else sponza_standin(8, 3)
         accel = build_pair_accel_two_level(None, scene_meta(scene),
                                            scene=scene)
-    lo, hi = accel.cluster_lo.min(0), accel.cluster_hi.max(0)
+    return accel.to(device)
+
+
+def _k1_modes_case(mode, device):
+    """Seeded rays, tables and sorted entries for one K1 mode: all-pairs
+    on the Cornell box, two-level on sponza_standin(8, 3), two-level with
+    supercluster entries on the full sponza_standin()."""
+    rng = np.random.default_rng(11)
+    n = 3 * tw.TILE
+    acc = _k1_modes_accel(mode, device)
+    lo = acc.cluster_lo.amin(0).cpu().numpy()
+    hi = acc.cluster_hi.amax(0).cpu().numpy()
     org = lo + rng.uniform(size=(n, 3)) * (hi - lo)
     d = lo + rng.uniform(size=(n, 3)) * (hi - lo) - org
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -146,7 +157,6 @@ def _k1_modes_case(mode, device):
     tmax = np.where(np.arange(n) % 9 == 0, -1.0,
                     rng.uniform(0.05, 0.5, n) * diag)
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
-    acc = accel.to(device)
     org, dirn, tmax = t(org), t(d), t(tmax)
     inv_d = tw._safe_inv(dirn)
     tl = {}
@@ -272,6 +282,142 @@ def test_budget_and_pair_renders_on_cuda_match_cpu(cuda_device, over):
         assert counts["exact_mask"] > 0 and counts["tileloop"] > 0
     else:
         assert counts["pair"] > 0
+    a = fb.resolve(gpu).cpu().numpy()
+    b = fb.resolve(cpu).numpy()
+    assert np.isfinite(a).all()
+    assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_packet_cuda_matches_plain(cuda_device, any_hit):
+    """K5 against its plain version on the bunny stand-in's packet BVH:
+    all four outputs and the group counters bit-equal (one thread per
+    ray, the plain version's descent rule and op order)."""
+    from tpurt_torch.bvh.cluster import build_packet_accel
+    from tpurt_torch.kernels import packet as pk
+
+    scene = bunny_standin(subdivisions=3)
+    acc = build_packet_accel(None, scene_meta(scene),
+                             scene=scene).to(cuda_device)
+    rng = np.random.default_rng(13)
+    n = 2 * pk.PACKET
+    center = np.array([float(acc.node_bminx[0] + acc.node_bmaxx[0]),
+                       float(acc.node_bminy[0] + acc.node_bmaxy[0]),
+                       float(acc.node_bminz[0] + acc.node_bmaxz[0])]) / 2
+    org = center + rng.normal(size=(n, 3)) * 4.5
+    d = center + rng.normal(size=(n, 3)) * 1.2 - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(n) % 7 == 0, -1.0,
+                    rng.uniform(2.0, 6.0, n) if any_hit else 3.4e38)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda_device)
+    args = (tuple(acc[:10]), t(org), t(d), t(tmax), any_hit)
+    before = pk.packet_cuda.launches
+    got = pk.packet_cuda(*args)
+    assert pk.packet_cuda.launches == before + 1
+    want = pk.packet_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[4].shape == (2, 2) and bool((got[4] > 0).all())
+    assert int((got[3] >= 0).sum()) > 300
+
+
+def _hold_to_k1_bars(k, p, tmax):
+    live = tmax >= 0
+    same = live & (k[3] == p[3])
+    assert int(same.sum()) >= 0.9999 * int(live.sum())
+    assert int((p[3][live] >= 0).sum()) > 100
+    rel = ((k[0] - p[0]).abs() / p[0].abs().clamp_min(1e-30))[same]
+    assert float(rel.max()) <= 1e-6
+    if len(k) == 5:
+        assert torch.equal(k[4][same], p[4][same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "lean_any"])
+def test_tileloop_seg_cuda_matches_plain(wave, any_hit):
+    """K1's pair-segment mode against its plain version, and against the
+    entry-row launch over the same entries (bit-equal: one kernel body,
+    the same entries in the same order)."""
+    w = wave
+    acc = w["accel"]
+    rays = (w["org"], w["dirn"], w["inv_d"], w["tmax"])
+    off, pair_cl, n_pairs, over = tw._segment_lists(
+        *rays, acc.cluster_lo, acc.cluster_hi, w["scale"], exact=True,
+        pairs_per_tile=0, pcap=3 * 14)
+    assert not bool(over) and int(n_pairs) == int(off[-1]) > 0
+    args = (*rays, acc.tri_rows, off, pair_cl, w["scale"], any_hit)
+    tw.reset_launch_counts()
+    k = tw.tileloop_seg_cuda(*args)
+    assert tw.launch_counts()["tileloop_seg"] == 1
+    p = tw.tileloop_seg_plain(*args)
+    _hold_to_k1_bars(k, p, w["tmax"])
+    entry, counts = tw._segments_to_rows(off, pair_cl)
+    rows = tw.tileloop_cuda(*rays, acc.tri_rows, entry, counts, w["scale"],
+                            any_hit)
+    for a, b in zip(k, rows):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["flat", "tl", "allpairs"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_tilegrid_cuda_matches_plain(cuda_device, wave, mode, any_hit):
+    """K4 against its plain version on the pair lists the grid path
+    builds (interval mask, sentinels; every pair for all-pairs): slots
+    and instances held to K1's bars, the occlusion flag equal on any-hit
+    waves; each mode counts under its own launch name."""
+    if mode == "flat":
+        w = wave
+        rays = (w["org"], w["dirn"], w["inv_d"], w["tmax"])
+        acc, tl = w["accel"], {}
+    else:
+        args, tl = _k1_modes_case(mode, cuda_device)
+        rays = args[:4]
+        acc = _k1_modes_accel(mode, cuda_device)
+    n_c = acc.cluster_lo.shape[0]
+    all_pairs = mode == "allpairs"
+    packed, n_pairs, over = tw._grid_list(
+        rays[0], rays[1], rays[3], acc.cluster_lo, acc.cluster_hi,
+        n_clusters=n_c, pair_cap=3 * (n_c + 1), per_tile_clamp=n_c + 1,
+        all_pairs=all_pairs)
+    assert not bool(over)
+    args = (*rays, acc.tri_rows, packed, any_hit)
+    tw.reset_launch_counts()
+    k = tw.tilegrid_cuda(*args, all_pairs=all_pairs, **tl)
+    name = "tilegrid" + ("_tl" if tl else "") + ("_allpairs" if all_pairs
+                                                 else "")
+    assert tw.launch_counts()[name] == 1
+    p = tw.tilegrid_plain(*args, **tl)
+    assert len(k) == len(p) == (5 if tl else 4)
+    if any_hit:
+        assert torch.equal(k[3] >= 0, p[3] >= 0)
+        assert bool((p[3] >= 0).any())
+    else:
+        _hold_to_k1_bars(k, p, rays[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,over,kernel", [
+    ({}, dict(intersector="bvh_packet"), "packet"),
+    (dict(TPURT_ENTRY_ROWS="0"), {}, "tileloop_seg"),
+    (dict(TPURT_PAIR_LOOP="0"), {}, "tilegrid")],
+    ids=["bvh_packet", "segments", "grid"])
+def test_new_paths_render_on_cuda_match_cpu(cuda_device, monkeypatch, env,
+                                            over, kernel):
+    """The bvh_packet intersector and the tile intersector's two switches
+    on the card: each launches its kernel, ends without overflow and
+    stays within RMSE 1e-3 of the CPU render."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = get_config("bunny", width=64, height=48, spp=2, spp_per_batch=2,
+                     max_bounces=2, **over)
+    scene = bunny_standin(subdivisions=3)
+    cpu, _ = render_scene(cfg, device="cpu", scene=scene)
+    kernels.reset_launch_counts()
+    gpu, stats = render_scene(cfg, device=cuda_device, scene=scene)
+    assert kernels.launch_counts()[kernel] > 0
+    assert not stats["pair_overflow"]
     a = fb.resolve(gpu).cpu().numpy()
     b = fb.resolve(cpu).numpy()
     assert np.isfinite(a).all()

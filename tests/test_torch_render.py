@@ -129,7 +129,7 @@ def test_unported_paths_raise():
     scene = bunny_standin(subdivisions=3)
     for kw in (dict(pipeline="mega"), dict(pipeline="wavefront"),
                dict(intersector="brute"), dict(n_tile_shards=2),
-               dict(n_sample_shards=2), dict(intersector="bvh_packet")):
+               dict(n_sample_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_scene(get_config("bunny", **dict(SMALL, **kw)),
                          device="cpu", scene=scene)

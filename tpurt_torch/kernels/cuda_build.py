@@ -4,7 +4,8 @@ Each source compiles with its own nvcc process (all started together),
 then one link makes a shared library with a plain C interface, loaded
 with ctypes. The build runs at first use, never at import, into
 ``tpurt_torch/build/`` under a name keyed by the sources' hash, so an
-edited source rebuilds and a stale library is never loaded.
+edited source rebuilds in the next process and a stale library is never
+loaded.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``. No
 ``--use_fast_math``: the kernels keep IEEE division (``1/det``,
@@ -25,7 +26,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu")
+SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu", "packet.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -51,13 +52,19 @@ class KernelLibrary:
         lib.tpurt_pair_test.argtypes = [p, p, p, p, p, p, p, ctypes.c_long,
                                         p, p, p, p, p]
         lib.tpurt_pair_test.restype = i
-        lib.tpurt_tileloop.argtypes = [p, p, p, p, p, p, p, i, i,
+        lib.tpurt_tileloop.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                        ctypes.c_float, i, p, p, p,
                                        p, p, p, p, p, p]
         lib.tpurt_tileloop.restype = i
+        lib.tpurt_tilegrid.argtypes = [p, p, p, p, p, p, i, i, i, p, p,
+                                       p, p, p, p, p, p]
+        lib.tpurt_tilegrid.restype = i
+        lib.tpurt_packet.argtypes = [p] * 9 + [i, p, p, p, p, i, i,
+                                               p, p, p, p, p, p]
+        lib.tpurt_packet.restype = i
 
 
-_LOADED: dict = {}
+_LOADED: list = []  # the process's library once loaded
 
 
 def _nvcc() -> str:
@@ -101,7 +108,11 @@ def _build(srcs, out: str) -> str:
 
 
 def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library. Every launch asks
+    for it, so the sources are hashed once per process: later calls
+    return the loaded library without reading them."""
+    if _LOADED:
+        return _LOADED[0]
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     h = hashlib.sha256()
     for s in srcs:
@@ -109,8 +120,6 @@ def load() -> KernelLibrary:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
-    if key in _LOADED:
-        return _LOADED[key]
     out = os.path.join(BUILD, f"libtpurt_kernels_{key}.so")
     log, seconds = "", 0.0
     if not os.path.exists(out):
@@ -121,5 +130,5 @@ def load() -> KernelLibrary:
         seconds = time.perf_counter() - t0
         os.replace(tmp, out)
     lib = KernelLibrary(ctypes.CDLL(out), out, log, seconds)
-    _LOADED[key] = lib
+    _LOADED.append(lib)
     return lib

@@ -1,53 +1,66 @@
-"""Tile-wavefront traversal — port of the entry-row path of
-``tpurt.kernels.tilewave`` (``make_tile_intersector``).
+"""Tile-wavefront traversal — port of ``tpurt.kernels.tilewave``
+(``make_tile_intersector``).
 
-A wave of rays is cut into 1024-ray tiles. Each tile gets a front-to-back
-row of entry words ``(tn_q << 16) | cluster`` — the clusters some ray of
-the tile may hit, keyed by a floor-quantized lower bound of their slab
-entry distance — and the traversal kernel walks that row, testing the
-clusters' triangles against the tile's rays:
+A wave of rays is cut into 1024-ray tiles. Each tile gets the clusters
+some ray of the tile may hit, as entry words ``(tn_q << 16) | cluster``
+keyed by a floor-quantized lower bound of their slab entry distance, and a
+traversal kernel tests the clusters' triangles against the tile's rays:
 
   1. bounce and shadow waves are octant-sorted (direction sign first,
-     origin Morton second) so tiles are coherent, and their entry rows
-     come from the exact per-ray slab reduction (K2, ``exact_entries``);
-     primary waves keep the screen-tile order and take their rows from
-     the conservative interval-frustum mask ``_tile_mask``;
-  2. each row is sorted (``torch.sort`` along the cluster axis);
-  3. the traversal loop (K1, ``tileloop``) runs per tile, closest-hit or
-     lean any-hit;
+     origin Morton second) so tiles are coherent, and their entries come
+     from the exact per-ray slab reduction (K2 ``exact_entries``, or K3
+     ``exact_mask`` unpacked); primary waves keep the screen-tile order
+     and take their entries from the conservative interval-frustum mask
+     ``_tile_mask``;
+  2. each tile's entries are sorted front to back (``torch.sort`` along
+     the cluster axis);
+  3. the traversal loop (K1, ``tileloop``) walks them per tile,
+     closest-hit or lean any-hit, with a far break;
   4. results are un-permuted to the caller's ray order.
 
-With a per-tile clamp (``pairs_per_tile > 0``, the budget path) the
-entry rows come unpacked instead: the exact mask and minimum entry
-distance (K3, ``exact_mask``) on sorted waves, the interval mask on
-primary waves; each tile keeps its first ``min(pairs_per_tile − 1, C)``
-hit clusters in cluster order, the overflow flag goes to stats[1], and the
-kept entries are packed, sorted and traversed as above.
+Modes, picked per wave as the reference picks them (its
+``_entry_rows_enabled`` gate and launch sizing, ported as the rule for
+choosing a mode):
 
-The kernels are hand-written CUDA (``tpurt_torch/csrc``: K2 and K3 share
-``entries.cu``) launched by ``entries_cuda``/``exact_mask_cuda``/
-``tileloop_cuda``; ``entries_plain``/``exact_mask_plain``/
-``tileloop_plain`` are their plain PyTorch versions. The dispatching
+  - all-pairs: scenes of at most 8 clusters walk every cluster (the row
+    [0, …, C−1] with scale 0, the reference's ``off``/``pair_cl`` list
+    with ``off = arange·C`` laid out as rows; no clamp);
+  - entry rows (``TPURT_PAIR_LOOP`` on, the default): one launch over the
+    wave, entries per cluster, or per supercluster where the accel has
+    them, no clamp is set and either C ≥ SC_AUTO_MIN_CLUSTERS or the
+    cluster slab fails the gate; a per-tile clamp (``pairs_per_tile``)
+    keeps each tile's first ``min(pairs_per_tile − 1, C)`` hit clusters
+    in cluster order and flags the overflow in stats[1];
+  - pair segments (K1's ``off``/``pair_cl`` mode, ``tileloop_seg``): where
+    the gate fails (``TPURT_ENTRY_ROWS=0``, more than 4096 clusters, or a
+    (T, Cp) slab over 48 MB; a 256-tile chunk that passes the gate still
+    takes entry rows, as in the reference), 256-tile chunks whose clamped
+    entries go into one tile-major list of capacity ``pcap``
+    (``pairs_avg_cap`` per tile, at most 96 K pairs); a longer list is
+    cut and flagged;
+  - grid over pairs (K4, ``tilegrid``, ``TPURT_PAIR_LOOP=0``): the
+    interval mask on every wave, clamped per tile in cluster order, one
+    sentinel pair per tile, chunks of ``96 K // pairs_avg`` tiles with a
+    capacity of ``pairs_avg`` per tile (per wave kind); no far break.
+
+The chunks are the reference's launch sizing (its launches bound SMEM):
+they fix the capacities, cuts and overflow flags. Their lists are laid
+end to end and one launch walks the whole wave, since a launch of 256
+1024-ray blocks fills the card once and then waits for its slowest tile.
+
+A two-level accel transforms the ray into each instance-cluster's object
+space inside K1 and K4 and reports the hit instance. The kernels are
+hand-written CUDA (``tpurt_torch/csrc``: K2 and K3 in ``entries.cu``, K1
+and K4 in ``tileloop.cu``) launched by the ``*_cuda`` functions; the
+``*_plain`` functions are their plain PyTorch versions. The dispatching
 wrappers take the plain version only for CPU tensors: a CUDA tensor
 launches the kernel or raises.
-
-K1's modes, as the reference picks them: entry rows per cluster (flat or
-two-level), entry rows per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS
-(sponza) unless a per-tile clamp is set, and the all-pairs row for scenes
-of at most 8 clusters (the hello and Cornell presets), which ignores the
-clamp. A two-level accel transforms the ray into each instance-cluster's
-object space inside K1.
-
-Entry rows are used at every wave size: device memory holds the (T, Cp)
-slab where the reference's VMEM budget did not, so the reference's
-pair-segment fallback past that budget (K1's ``off``/``pair_cl`` mode) is
-not carried. Not ported yet (ROADMAP §1 item 15): that segment mode and
-the grid-over-pairs kernel (K4).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -67,8 +80,32 @@ TN_LEVELS = 32766  # largest quantized entry distance
 ALLPAIRS_MAX_CLUSTERS = 8
 # accels with superclusters and at least this many clusters build their
 # entry rows over the superboxes (the reference's auto rule; its second
-# trigger, a TPU VMEM budget, has no counterpart in device memory)
+# trigger is the entry-row gate below)
 SC_AUTO_MIN_CLUSTERS = 2000
+# The reference's rule for choosing between entry rows and pair lists,
+# kept as its rule (the numbers are its TPU's VMEM and SMEM budgets, not a
+# limit of this card): entry rows while the scene has at most 4096
+# clusters and the (tiles + 8) × Cp i32 slab fits 48 MB; else 256-tile
+# pair-segment launches of at most 96 K pairs, or, without the pair loop,
+# grid launches of at most 96 K pairs.
+ENTRY_ROWS_MAX_CLUSTERS = 4096
+ENTRY_VMEM_BYTES = 48 * 1024 * 1024
+ENTRY_GROUP = 8
+TILES_PER_LAUNCH = 256
+MAX_PAIRS_PER_LAUNCH = 96 * 1024
+
+
+def _entry_rows_enabled(n_clusters: int, n_tiles: int = 0) -> bool:
+    """Whether a wave of ``n_tiles`` tiles takes entry rows:
+    ``TPURT_ENTRY_ROWS=1``/``0`` force it, "auto" (the default) applies
+    the reference's gate."""
+    v = os.environ.get("TPURT_ENTRY_ROWS", "auto")
+    if v != "auto":
+        return v == "1"
+    if n_clusters > ENTRY_ROWS_MAX_CLUSTERS:
+        return False
+    return (n_tiles + ENTRY_GROUP) * _padded_lanes(n_clusters) * 4 \
+        <= ENTRY_VMEM_BYTES
 
 
 def _padded_lanes(n_clusters: int) -> int:
@@ -548,72 +585,104 @@ def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs,
         bi[rw] = inst[win][better]
 
 
-def _variant(pair_meta, sc_meta, scale: float) -> str:
+def _variant(pair_meta, sc_meta, scale: float, seg: bool = False) -> str:
     """Launch-count name of a K1 mode: scale 0 is the all-pairs row (its
-    entries carry no distance), sc_meta the supercluster entries,
-    pair_meta the two-level accel."""
+    entries carry no distance), sc_meta the supercluster entries, seg the
+    pair segments, pair_meta the two-level accel."""
     name = "tileloop"
     if pair_meta is not None:
         name += "_tl"
     if sc_meta is not None:
         name += "_sc"
+    elif seg:
+        name += "_seg"
     elif scale == 0.0:
         name += "_allpairs"
     return name
 
 
-def tileloop_cuda(org, dirn, inv_d, tmax, tri_rows, entries, counts,
-                  scale: float, any_hit: bool, pair_meta=None,
-                  inv_xform=None, sc_meta=None):
-    """Launch the CUDA traversal kernel (csrc/tileloop.cu) on the current
-    stream: closest-hit, or the lean any-hit variant when ``any_hit``;
-    two-level with ``pair_meta``/``inv_xform``, supercluster entries with
-    ``sc_meta``. Returns (bt, bu, bv, bs[, bi]) per ray."""
-    from tpurt_torch.kernels import cuda_build
-
+def _ray_args(name, org, dirn, inv_d, tmax, tri_rows, pair_meta, inv_xform):
+    """Checks shared by the K1 and K4 launchers; returns (device,
+    n_tiles)."""
     dev = org.device
     if dev.type != "cuda":
-        raise ValueError(f"tileloop_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     n = org.shape[0]
     if n % TILE:
         raise ValueError(f"ray count {n} is not a multiple of {TILE}")
-    n_tiles = n // TILE
-    cp = entries.shape[1]
     f32, i32 = torch.float32, torch.int32
     _check("org", org, f32, (n, 3), dev)
     _check("dirn", dirn, f32, (n, 3), dev)
     _check("inv_d", inv_d, f32, (n, 3), dev)
     _check("tmax", tmax, f32, (n,), dev)
     _check("tri_rows", tri_rows, f32, (tri_rows.shape[0], 128), dev)
-    _check("entries", entries, i32, (n_tiles, cp), dev)
-    _check("counts", counts, i32, (n_tiles,), dev)
     if tri_rows.shape[0] % ROWS_PER_CLUSTER:
         raise ValueError("tri_rows must hold whole clusters of 8 rows")
-    two_level = pair_meta is not None
-    if two_level != (inv_xform is not None):
+    if (pair_meta is not None) != (inv_xform is not None):
         raise ValueError("pair_meta and inv_xform come together")
-    if two_level:
+    if pair_meta is not None:
         _check("pair_meta", pair_meta, i32, (pair_meta.shape[0],), dev)
         _check("inv_xform", inv_xform, f32, (pair_meta.shape[0], 12), dev)
+    return dev, n // TILE
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts, off,
+                     scale, any_hit, pair_meta, inv_xform, sc_meta):
+    """One K1 launch on the current stream: entry rows (``counts``) or
+    pair segments (``off``)."""
+    from tpurt_torch.kernels import cuda_build
+
+    dev, n_tiles = _ray_args("tileloop_cuda", org, dirn, inv_d, tmax,
+                             tri_rows, pair_meta, inv_xform)
+    i32 = torch.int32
+    seg = off is not None
+    if seg:
+        if sc_meta is not None:
+            raise ValueError("pair segments take cluster entries, not "
+                             "superclusters")
+        _check("off", off, i32, (n_tiles + 1,), dev)
+        _check("pair_cl", entries, i32, (entries.shape[0],), dev)
+        cp = 0
+    else:
+        cp = entries.shape[1]
+        _check("entries", entries, i32, (n_tiles, cp), dev)
+        _check("counts", counts, i32, (n_tiles,), dev)
     if sc_meta is not None:
         _check("sc_meta", sc_meta, i32, (sc_meta.shape[0],), dev)
-    out = torch.empty((5 if two_level else 4, n), dtype=f32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    two_level = pair_meta is not None
+    out = torch.empty((5 if two_level else 4, org.shape[0]),
+                      dtype=torch.float32, device=dev)
     lib = cuda_build.load().lib
     err = lib.tpurt_tileloop(
         org.data_ptr(), dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
-        tri_rows.data_ptr(), entries.data_ptr(), counts.data_ptr(),
-        n_tiles, cp, scale, int(bool(any_hit)), ptr(pair_meta),
-        ptr(inv_xform), ptr(sc_meta), out[0].data_ptr(), out[1].data_ptr(),
+        tri_rows.data_ptr(), entries.data_ptr(), _ptr(counts), _ptr(off),
+        n_tiles, cp, scale, int(bool(any_hit)), _ptr(pair_meta),
+        _ptr(inv_xform), _ptr(sc_meta), out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr(), out[3].data_ptr(),
         out[4].data_ptr() if two_level else None, _stream(dev))
     if err:
         raise RuntimeError(f"tileloop kernel launch failed: cudaError {err}")
     tileloop_cuda.launches += 1
-    name = _variant(pair_meta, sc_meta, scale)
+    name = _variant(pair_meta, sc_meta, scale, seg)
     tileloop_cuda.variant_launches[name] = \
         tileloop_cuda.variant_launches.get(name, 0) + 1
     return tuple(out)
+
+
+def tileloop_cuda(org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                  scale: float, any_hit: bool, pair_meta=None,
+                  inv_xform=None, sc_meta=None):
+    """Launch the CUDA traversal kernel (csrc/tileloop.cu) on the current
+    stream over entry rows: closest-hit, or the lean any-hit variant when
+    ``any_hit``; two-level with ``pair_meta``/``inv_xform``, supercluster
+    entries with ``sc_meta``. Returns (bt, bu, bv, bs[, bi]) per ray."""
+    return _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries,
+                            counts, None, scale, any_hit, pair_meta,
+                            inv_xform, sc_meta)
 
 
 tileloop_cuda.launches = 0
@@ -631,18 +700,148 @@ def tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts,
               sc_meta=sc_meta)
 
 
+def _segments_to_rows(off, pair_cl):
+    """Pair segments → entry rows: (T, P) i32 padded with INT32_MAX and
+    the (T,) counts."""
+    counts = (off[1:] - off[:-1]).to(torch.int32)
+    p_max = int(counts.max()) if counts.numel() else 0
+    lane = torch.arange(p_max, device=off.device)
+    idx = off[:-1, None].to(torch.int64) + lane[None, :]
+    live = lane[None, :] < counts[:, None]
+    if pair_cl.numel() == 0:
+        return torch.full(idx.shape, INT32_MAX, dtype=torch.int32,
+                          device=off.device), counts
+    rows = torch.where(live, pair_cl[torch.clamp(idx, max=pair_cl.numel()
+                                                 - 1)], INT32_MAX)
+    return rows.to(torch.int32), counts
+
+
+def tileloop_seg_plain(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
+                       scale: float, any_hit: bool, pair_meta=None,
+                       inv_xform=None):
+    """Plain PyTorch version of K1's pair-segment mode: tile t walks
+    ``pair_cl[off[t]:off[t + 1]]`` — the entry-row plain version over
+    those segments laid out as rows."""
+    entries, counts = _segments_to_rows(off, pair_cl)
+    return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                          scale, any_hit, pair_meta=pair_meta,
+                          inv_xform=inv_xform)
+
+
+def tileloop_seg_cuda(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
+                      scale: float, any_hit: bool, pair_meta=None,
+                      inv_xform=None):
+    """Launch K1 in its pair-segment mode (the ``kSeg`` variant of
+    csrc/tileloop.cu) on the current stream. Returns (bt, bu, bv, bs[,
+    bi]) per ray."""
+    return _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, pair_cl, None,
+                            off, scale, any_hit, pair_meta, inv_xform, None)
+
+
+def tileloop_seg(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
+                 scale: float, any_hit: bool, pair_meta=None,
+                 inv_xform=None):
+    """K1 pair-segment wrapper: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    fn = (tileloop_seg_plain if org.device.type == "cpu"
+          else tileloop_seg_cuda)
+    return fn(org, dirn, inv_d, tmax, tri_rows, off, pair_cl, scale,
+              any_hit, pair_meta=pair_meta, inv_xform=inv_xform)
+
+
+# --------------------------------------------------------------------------
+# K4: grid over (tile, cluster) pairs
+# --------------------------------------------------------------------------
+
+
+def tilegrid_plain(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
+                   pair_meta=None, inv_xform=None, all_pairs=False):
+    """Plain PyTorch version of K4: each tile walks its real pairs of the
+    tile-major list ``packed`` (tile << 16 | cluster + 1; sentinels and
+    fill slots, cluster −1, skipped) in list order, the closest fold of
+    the entry-row plain version without a far break. Any-hit waves get
+    the same closest result: the kernel's early-out only drops a tile's
+    remaining pairs once every lane is occluded or dead, which changes no
+    lane's occlusion flag (bs ≥ 0), the one field an any-hit caller
+    reads. ``all_pairs`` only names the launch. Returns (bt, bu, bv,
+    bs[, bi]) per ray."""
+    del any_hit, all_pairs
+    n_tiles = org.shape[0] // TILE
+    dev = org.device
+    pk = packed.to(torch.int64)
+    cl = (pk & 0xFFFF) - 1
+    real = cl >= 0
+    tiles, cl = pk[real] >> 16, cl[real]
+    counts = torch.bincount(tiles, minlength=n_tiles).to(torch.int32)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(tiles.shape[0], device=dev) - starts[tiles]
+    p_max = int(counts.max()) if n_tiles else 0
+    entries = torch.full((n_tiles, p_max), INT32_MAX, dtype=torch.int32,
+                         device=dev)
+    entries[tiles, rank] = cl.to(torch.int32)
+    return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                          0.0, False, pair_meta=pair_meta,
+                          inv_xform=inv_xform)
+
+
+def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
+                  pair_meta=None, inv_xform=None, all_pairs=False):
+    """Launch the CUDA grid-over-pairs kernel (csrc/tileloop.cu,
+    ``tilegrid_kernel``) on the current stream: closest-hit, or any-hit
+    with the all-occluded early-out. ``all_pairs`` (the list holds every
+    (tile, cluster) pair) names the launch "tilegrid_allpairs". Returns
+    (bt, bu, bv, bs[, bi]) per ray."""
+    from tpurt_torch.kernels import cuda_build
+
+    dev, n_tiles = _ray_args("tilegrid_cuda", org, dirn, inv_d, tmax,
+                             tri_rows, pair_meta, inv_xform)
+    _check("packed", packed, torch.int32, (packed.shape[0],), dev)
+    two_level = pair_meta is not None
+    out = torch.empty((5 if two_level else 4, org.shape[0]),
+                      dtype=torch.float32, device=dev)
+    lib = cuda_build.load().lib
+    err = lib.tpurt_tilegrid(
+        org.data_ptr(), dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
+        tri_rows.data_ptr(), packed.data_ptr(), packed.shape[0], n_tiles,
+        int(bool(any_hit)), _ptr(pair_meta), _ptr(inv_xform),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), out[4].data_ptr() if two_level else None,
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"tilegrid kernel launch failed: cudaError {err}")
+    name = ("tilegrid" + ("_tl" if two_level else "")
+            + ("_allpairs" if all_pairs else ""))
+    tilegrid_cuda.variant_launches[name] = \
+        tilegrid_cuda.variant_launches.get(name, 0) + 1
+    return tuple(out)
+
+
+tilegrid_cuda.variant_launches = {}
+
+
+def tilegrid(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
+             pair_meta=None, inv_xform=None, all_pairs=False):
+    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = tilegrid_plain if org.device.type == "cpu" else tilegrid_cuda
+    return fn(org, dirn, inv_d, tmax, tri_rows, packed, any_hit,
+              pair_meta=pair_meta, inv_xform=inv_xform, all_pairs=all_pairs)
+
+
 def reset_launch_counts() -> None:
     entries_cuda.launches = 0
     exact_mask_cuda.launches = 0
     tileloop_cuda.launches = 0
     tileloop_cuda.variant_launches = {}
+    tilegrid_cuda.variant_launches = {}
 
 
 def launch_counts() -> dict:
-    """Launches since the last reset: K2, K3, and K1 by mode."""
+    """Launches since the last reset: K2, K3, K1 by mode and K4."""
     return {"entries": entries_cuda.launches,
             "exact_mask": exact_mask_cuda.launches,
-            **tileloop_cuda.variant_launches}
+            **tileloop_cuda.variant_launches,
+            **tilegrid_cuda.variant_launches}
 
 
 # --------------------------------------------------------------------------
@@ -729,28 +928,194 @@ def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
     return out, torch.tensor(float(n_tiles * n_clusters), device=dev)
 
 
+def _segment_lists(org, dirn, inv_d, tmv, lo, hi, scale, *, exact,
+                   pairs_per_tile, pcap):
+    """The pair-segment host side of one launch chunk: the exact mask K3
+    (sorted waves) or the interval mask (primary waves), the per-tile
+    clamp (all clusters kept without one), the entries packed and sorted
+    front to back per tile, then laid end to end in tile order as one
+    list cut at ``pcap`` pairs (``off`` clamped with it, so the trailing
+    tiles lose theirs; flagged). Returns (off, pair_cl, n_pairs,
+    overflow)."""
+    n_tiles, n_c = org.shape[0] // TILE, lo.shape[0]
+    if exact:
+        mask, tn = exact_mask(org, inv_d, tmv, lo, hi)
+    else:
+        mask, tn = _tile_mask(org, dirn, tmv, lo, hi, n_tiles, return_tn=True)
+    mask, counts, overflow = _clamp_rows(
+        mask, pairs_per_tile if pairs_per_tile > 0 else n_c + 1)
+    total = counts.sum(dtype=torch.int64)
+    overflow = overflow | (total > pcap)
+    entry = torch.sort(_pack_entries(mask, tn, scale), dim=1).values
+    live = (torch.arange(entry.shape[1], device=org.device)[None, :]
+            < counts[:, None])
+    pair_cl = entry[live][:pcap].contiguous()
+    off = torch.cat([torch.zeros(1, dtype=torch.int64, device=org.device),
+                     torch.cumsum(counts, 0, dtype=torch.int64)])
+    off = torch.clamp_max(off, pcap).to(torch.int32)
+    return off, pair_cl, total.to(torch.float32), overflow
+
+
+def _wave_segments(org, dirn, inv_d, tmv, lo, hi, scale, chunk_tiles, *,
+                   exact, pairs_per_tile, pcap):
+    """The pair segments of a whole wave: each launch chunk of
+    ``chunk_tiles`` tiles gets its own list at capacity ``pcap`` (the
+    reference's launch sizing, its cuts and flags), and the chunks' lists
+    are laid end to end for one launch over the wave (the reference's
+    chunks bound a launch's SMEM; here the lists live in device memory,
+    and one launch keeps the card busy where a 256-tile launch would wait
+    for its slowest tile). Returns (off (T + 1,), pair_cl, n_pairs,
+    overflow)."""
+    n_tiles = org.shape[0] // TILE
+    offs, lists, nps, ofs, base = [], [], [], [], 0
+    for k in range(0, n_tiles, chunk_tiles):
+        c = slice(k * TILE, (k + chunk_tiles) * TILE)
+        off, pair_cl, np_, of = _segment_lists(
+            org[c], dirn[c], inv_d[c], tmv[c], lo, hi, scale, exact=exact,
+            pairs_per_tile=pairs_per_tile, pcap=pcap)
+        offs.append(off[:-1] + base)
+        lists.append(pair_cl)
+        nps.append(np_)
+        ofs.append(of)
+        base += pair_cl.shape[0]
+    offs.append(torch.full((1,), base, dtype=torch.int32, device=org.device))
+    return (torch.cat(offs), torch.cat(lists), torch.stack(nps).sum(),
+            torch.stack(ofs).any())
+
+
+def _trace_segments(org, dirn, tmv, lo, hi, tri_rows, scale, chunk_tiles, *,
+                    any_hit, exact, tl, pairs_per_tile, pcap):
+    """A wave through K1's pair-segment mode (lists from
+    ``_wave_segments``), one launch. Returns ((bt, bu, bv, bs[, bi]),
+    n_pairs, overflow)."""
+    inv_d = _safe_inv(dirn)
+    off, pair_cl, n_pairs, overflow = _wave_segments(
+        org, dirn, inv_d, tmv, lo, hi, scale, chunk_tiles, exact=exact,
+        pairs_per_tile=pairs_per_tile, pcap=pcap)
+    out = tileloop_seg(org, dirn, inv_d, tmv, tri_rows, off, pair_cl, scale,
+                       any_hit, **tl)
+    return out, n_pairs, overflow
+
+
+def _grid_list(org, dirn, tmv, lo, hi, *, n_clusters, pair_cap,
+               per_tile_clamp, all_pairs=False):
+    """K4's pair list for one launch chunk, ``pair_cap`` slots, tile-major,
+    as the reference builds it: all (tile, cluster) pairs for all-pairs
+    scenes; otherwise the interval mask on every wave, clamped per tile to
+    ``per_tile_clamp − 1`` clusters in cluster order, the first
+    ``pair_cap − T`` survivors in tile-major order (the rest cut and
+    flagged), one sentinel per tile merged in before its clusters, fill
+    slots (tile T−1, cluster −1) at the end. Returns (packed, n_pairs,
+    overflow); n_pairs counts the mask's pairs before the clamp plus the
+    sentinels."""
+    n_tiles = org.shape[0] // TILE
+    dev = org.device
+    if all_pairs:
+        tiles = torch.arange(n_tiles, device=dev).repeat_interleave(
+            n_clusters)
+        cl = torch.arange(n_clusters, device=dev).repeat(n_tiles)
+        packed = (tiles * 65536 + cl + 1).to(torch.int32)
+        n_pairs = torch.tensor(float(n_tiles * n_clusters), device=dev)
+        return packed, n_pairs, torch.zeros((), dtype=torch.bool, device=dev)
+    mask = _tile_mask(org, dirn, tmv, lo, hi, n_tiles)
+    n_pairs = (mask.sum(dtype=torch.int64) + n_tiles).to(torch.float32)
+    mask, _, overflow = _clamp_rows(mask, per_tile_clamp)
+    real_cap = pair_cap - n_tiles
+    ridx = torch.nonzero(mask.reshape(-1))[:, 0]
+    overflow = overflow | (ridx.shape[0] > real_cap)
+    ridx = ridx[:real_cap]
+    real_key = torch.full((real_cap,), INT32_MAX, dtype=torch.int64,
+                          device=dev)
+    real_key[:ridx.shape[0]] = ((ridx // n_clusters) * (n_clusters + 1)
+                                + ridx % n_clusters + 1)
+    sent_key = torch.arange(n_tiles, device=dev) * (n_clusters + 1)
+    keys = torch.sort(torch.cat([sent_key, real_key])).values
+    valid = keys < INT32_MAX
+    pair_tile = torch.where(valid, keys // (n_clusters + 1), n_tiles - 1)
+    pair_cl = torch.where(valid, keys % (n_clusters + 1) - 1, -1)
+    packed = (pair_tile * 65536 + pair_cl + 1).to(torch.int32)
+    return packed, n_pairs, overflow
+
+
+def _wave_grid_lists(org, dirn, tmv, lo, hi, chunk_tiles, *, n_clusters,
+                     pair_cap, per_tile_clamp, all_pairs=False):
+    """K4's pair lists of a whole wave: each launch chunk of
+    ``chunk_tiles`` tiles gets its own list of ``pair_cap`` slots (the
+    reference's launch sizing, cuts and flags), renumbered to the wave's
+    tiles and laid end to end, one launch per 32767 tiles (the tile field
+    of a pair word). Returns ([(first tile, end tile, packed)], n_pairs,
+    overflow)."""
+    n_tiles = org.shape[0] // TILE
+    if chunk_tiles > 32767:
+        raise ValueError(f"{chunk_tiles} tiles in one launch: the pair "
+                         "encoding caps them at 32767")
+    group = 32767 // chunk_tiles * chunk_tiles  # tiles per launch
+    launches, nps, ofs = [], [], []
+    for g in range(0, n_tiles, group):
+        lists = []
+        for k in range(g, min(g + group, n_tiles), chunk_tiles):
+            c = slice(k * TILE, (k + chunk_tiles) * TILE)
+            packed, np_, of = _grid_list(
+                org[c], dirn[c], tmv[c], lo, hi, n_clusters=n_clusters,
+                pair_cap=pair_cap, per_tile_clamp=per_tile_clamp,
+                all_pairs=all_pairs)
+            lists.append(packed + (k - g) * 65536)
+            nps.append(np_)
+            ofs.append(of)
+        launches.append((g, min(g + group, n_tiles), torch.cat(lists)))
+    return launches, torch.stack(nps).sum(), torch.stack(ofs).any()
+
+
+def _trace_grid(org, dirn, tmv, lo, hi, tri_rows, chunk_tiles, *,
+                n_clusters, pair_cap, per_tile_clamp, any_hit, tl,
+                all_pairs=False):
+    """A wave through K4 (lists from ``_wave_grid_lists``). Returns
+    ((bt, bu, bv, bs[, bi]), n_pairs, overflow)."""
+    inv_d = _safe_inv(dirn)
+    launches, n_pairs, overflow = _wave_grid_lists(
+        org, dirn, tmv, lo, hi, chunk_tiles, n_clusters=n_clusters,
+        pair_cap=pair_cap, per_tile_clamp=per_tile_clamp,
+        all_pairs=all_pairs)
+    outs = []
+    for t0, t1, packed in launches:
+        c = slice(t0 * TILE, t1 * TILE)
+        outs.append(tilegrid(org[c], dirn[c], inv_d[c], tmv[c], tri_rows,
+                             packed, any_hit, all_pairs=all_pairs, **tl))
+    out = (outs[0] if len(outs) == 1
+           else tuple(torch.cat(f) for f in zip(*outs)))
+    return out, n_pairs, overflow
+
+
 def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
-                          ray_sort: str = "none",
+                          pairs_avg: int = 0, ray_sort: str = "none",
                           shadow_ray_sort: str = "octant",
+                          shadow_pairs_avg: int = 0, pairs_avg_cap: int = 0,
                           lean: bool = False, live_cap: int = 0,
                           shadow_live_cap: int = 0):
     """Closest/any-hit pair over a pair-cluster accel (same interface as
     ``make_brute_force``); ``accel`` is a PairAccel or PairAccelTL of
     tensors on the rays' device.
 
-    Modes, as the reference picks them: at most ALLPAIRS_MAX_CLUSTERS
-    clusters take the all-pairs row (no sort, no restore, no live
-    truncation); an accel with superclusters and at least
-    SC_AUTO_MIN_CLUSTERS clusters builds its entry rows over the
-    superboxes and K1 expands each into its children; otherwise entries
-    are per cluster. A two-level accel (``pair_meta``) runs K1 in object
-    space per instance-cluster and reports the hit instance.
+    Modes (module docstring): all-pairs for at most ALLPAIRS_MAX_CLUSTERS
+    clusters (no sort, no restore, no live truncation); with the pair loop
+    (``TPURT_PAIR_LOOP``, read here, default on) entry rows while the
+    reference's gate passes (per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS
+    or past the cluster gate, without a clamp), else pair segments in
+    256-tile chunks; without it the grid over pairs (K4) in chunks of
+    ``96 K // pairs_avg`` tiles. Each wave's chunk lists go to one launch
+    of K1 or K4. A two-level accel
+    (``pair_meta``) runs K1/K4 in object space per instance-cluster and
+    reports the hit instance.
 
-    ``pairs_per_tile`` > 0 clamps every tile's entry row to its first
+    ``pairs_per_tile`` > 0 clamps every tile to its first
     ``min(pairs_per_tile − 1, C)`` hit clusters in cluster order (a
     clamped tile drops hits) and reports the overflow in stats[1]; it
-    switches superclusters off and leaves the all-pairs row alone, as in
-    the reference. 0 = no clamp.
+    switches superclusters off and leaves all-pairs alone, as in the
+    reference. 0 = no clamp. ``pairs_avg`` (closest waves) and
+    ``shadow_pairs_avg`` (any-hit waves, 0 = pairs_avg) size the grid's
+    pair capacity per tile on average; ``pairs_avg_cap`` (0 = the largest
+    of them) sizes the pair-segment capacity. A cut list also sets
+    stats[1].
 
     ``ray_sort``/``shadow_ray_sort``: "none" (keep the caller's order,
     interval-frustum entries — primary waves) or "octant" (coherence sort
@@ -758,13 +1123,15 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     back as −1 (and Hit.inst too on a flat accel; renderers shade through
     ``Hit.slot`` and, two-level, ``Hit.inst``).
     ``live_cap``/``shadow_live_cap``: live-wave truncation of the sorted
-    closest/shadow waves (rays); alive rays past the cap are counted in
-    stats[2] so the caller can re-render uncapped."""
+    closest/shadow waves (rays, rounded up to whole chunks where the
+    wave is chunked); alive rays past the cap are counted in stats[2]
+    so the caller can re-render uncapped."""
     del ds
     for s in (ray_sort, shadow_ray_sort):
         if s not in ("none", "octant"):
             raise NotImplementedError(
                 f"ray sort {s!r}: only 'none' and 'octant' are ported")
+    use_loop = os.environ.get("TPURT_PAIR_LOOP", "1") == "1"
     n_clusters = int(accel.cluster_lo.shape[0])
     lo = accel.cluster_lo
     hi = accel.cluster_hi
@@ -777,22 +1144,21 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     tl = dict(pair_meta=pair_meta,
               inv_xform=getattr(accel, "inv_xform", None))
     all_pairs = n_clusters <= ALLPAIRS_MAX_CLUSTERS
-    sc_active = (not all_pairs and accel.sc_meta is not None
-                 and pairs_per_tile <= 0
-                 and n_clusters >= SC_AUTO_MIN_CLUSTERS)
-    if sc_active:
-        # entry rows over the superboxes; K1 expands the children
-        e_lo, e_hi = accel.sc_lo, accel.sc_hi
-        tl["sc_meta"] = accel.sc_meta
-    else:
-        e_lo, e_hi = lo, hi
-    scale = tn_scale_of(e_lo.cpu().numpy(), e_hi.cpu().numpy())
+    sc_meta = accel.sc_meta
+    scale = tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    if sc_meta is not None:
+        n_sc = int(sc_meta.shape[0])
+        sc_scale = tn_scale_of(accel.sc_lo.cpu().numpy(),
+                               accel.sc_hi.cpu().numpy())
     lo_all = lo.amin(dim=0)
     hi_all = hi.amax(dim=0)
     ext = hi_all - lo_all
     diag = torch.sqrt(ext[0] * ext[0] + ext[1] * ext[1] + ext[2] * ext[2])
+    clamp = (n_clusters + 1 if pairs_per_tile <= 0
+             else min(pairs_per_tile, n_clusters + 1))
 
-    def _run(org, dirn, t_max, any_hit=False, sort=None, live_trunc=0):
+    def _run(org, dirn, t_max, any_hit=False, sort=None, avg_over=None,
+             live_trunc=0):
         sort = ray_sort if sort is None else sort
         n = org.shape[0]
         dev = org.device
@@ -808,12 +1174,54 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         tmv = _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag)
         live_over = torch.zeros((), dtype=torch.float32, device=dev)
         if all_pairs:
-            out, n_pairs = _trace_all_pairs(org, dirn, tmv, tri_rows,
-                                            n_clusters, any_hit=any_hit,
-                                            tl=tl)
-            stats = torch.stack([n_pairs, torch.zeros_like(n_pairs),
+            if use_loop:
+                out, n_pairs = _trace_all_pairs(org, dirn, tmv, tri_rows,
+                                                n_clusters, any_hit=any_hit,
+                                                tl=tl)
+                overflow = torch.zeros_like(n_pairs)
+            else:
+                out, n_pairs, overflow = _trace_grid(
+                    org, dirn, tmv, lo, hi, tri_rows, n_tiles,
+                    n_clusters=n_clusters, pair_cap=n_tiles * n_clusters,
+                    per_tile_clamp=0, any_hit=any_hit, tl=tl,
+                    all_pairs=True)
+            stats = torch.stack([n_pairs, overflow.to(torch.float32),
                                  live_over])
             return tuple(f[:n] for f in out), stats
+        # the mode and the launch sizing of this wave (the reference's)
+        eff_avg = pairs_avg if avg_over is None else avg_over
+        avg = clamp if eff_avg <= 0 else min(eff_avg, clamp)
+        sc_active = (sc_meta is not None and use_loop and pairs_per_tile <= 0
+                     and _entry_rows_enabled(n_sc, n_tiles))
+        cluster_rows = _entry_rows_enabled(n_clusters, n_tiles)
+        sc_active = sc_active and (not cluster_rows
+                                   or n_clusters >= SC_AUTO_MIN_CLUSTERS)
+        one_launch = use_loop and (sc_active or cluster_rows)
+        pcap = 0
+        if one_launch:
+            chunk_tiles = n_tiles
+        elif use_loop:
+            cap_avg = pairs_avg_cap if pairs_avg_cap > 0 else max(
+                pairs_avg, shadow_pairs_avg, eff_avg)
+            chunk_tiles = min(TILES_PER_LAUNCH, n_tiles)
+            pcap = min(chunk_tiles * (n_clusters if cap_avg <= 0
+                                      else min(cap_avg, n_clusters)),
+                       MAX_PAIRS_PER_LAUNCH)
+        else:
+            chunk_tiles = min(n_tiles, max(1, MAX_PAIRS_PER_LAUNCH // avg),
+                              32767)
+        # a wave past the gate whose chunks pass it runs entry rows too:
+        # the reference launches them per chunk, one launch gives the
+        # same rows, clamp and counts (all per tile)
+        rows = one_launch or (
+            use_loop and _entry_rows_enabled(n_clusters, chunk_tiles))
+        extra = 0 if rows else (-n_tiles) % chunk_tiles  # equal chunks
+        if extra:
+            e = extra * TILE
+            org = torch.cat([org, torch.zeros((e, 3), device=dev)])
+            dirn = torch.cat([dirn, torch.ones((e, 3), device=dev)])
+            tmv = torch.cat([tmv, torch.full((e,), -1.0, device=dev)])
+            n_tiles += extra
         perm = None
         if sort == "octant":
             keys = _octant_sort_keys(org, dirn, tmv, lo_all, hi_all)
@@ -822,13 +1230,34 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         n_full = n_tiles * TILE
         if live_trunc and perm is not None:
             kt = min(n_tiles, -(-int(live_trunc) // TILE))
+            if not one_launch:  # whole launch chunks
+                kt = min(n_tiles, -(-kt // chunk_tiles) * chunk_tiles)
             if kt < n_tiles:
                 live_over = (tmv[kt * TILE:] >= 0.0).sum(dtype=torch.float32)
                 org, dirn, tmv = (org[:kt * TILE], dirn[:kt * TILE],
                                   tmv[:kt * TILE])
-        out, n_pairs, overflow = _trace_entry_rows(
-            org, dirn, tmv, e_lo, e_hi, tri_rows, scale, any_hit=any_hit,
-            exact=perm is not None, tl=tl, pairs_per_tile=pairs_per_tile)
+                n_tiles = kt
+                if one_launch:
+                    chunk_tiles = kt
+        exact = perm is not None
+        if not use_loop:
+            out, n_pairs, overflow = _trace_grid(
+                org, dirn, tmv, lo, hi, tri_rows, chunk_tiles,
+                n_clusters=n_clusters, pair_cap=chunk_tiles * avg,
+                per_tile_clamp=clamp, any_hit=any_hit, tl=tl)
+        elif sc_active:
+            out, n_pairs, overflow = _trace_entry_rows(
+                org, dirn, tmv, accel.sc_lo, accel.sc_hi, tri_rows, sc_scale,
+                any_hit=any_hit, exact=exact, tl=dict(tl, sc_meta=sc_meta))
+        elif rows:
+            out, n_pairs, overflow = _trace_entry_rows(
+                org, dirn, tmv, lo, hi, tri_rows, scale, any_hit=any_hit,
+                exact=exact, tl=tl, pairs_per_tile=pairs_per_tile)
+        else:
+            out, n_pairs, overflow = _trace_segments(
+                org, dirn, tmv, lo, hi, tri_rows, scale, chunk_tiles,
+                any_hit=any_hit, exact=exact, tl=tl,
+                pairs_per_tile=pairs_per_tile, pcap=pcap)
         if out[0].shape[0] < n_full:
             # truncated wave: the dropped tail gets the kernel's dead-lane
             # values (bt −1, bu bv 0, bs −1, bi −1) before the un-permute
@@ -856,8 +1285,8 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         tri = (torch.full_like(slot_c, -1) if lean
                else prim_tri[slot_c.long()])
         if two_level:
-            # the instance comes from K1's fifth output (the slot is a
-            # shared mesh slot): the two-level resolver needs both
+            # the instance comes from the kernel's fifth output (the slot
+            # is a shared mesh slot): the two-level resolver needs both
             inst = torch.where(valid, bi.to(torch.int32), -1)
         elif lean:
             inst = torch.full_like(slot_c, -1)
@@ -877,7 +1306,9 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     def any_hit_with_stats(org, dirn, t_min, t_max):
         del t_min
         out, stats = _run(org, dirn, t_max, any_hit=True,
-                          sort=shadow_ray_sort, live_trunc=shadow_live_cap)
+                          sort=shadow_ray_sort,
+                          avg_over=shadow_pairs_avg or None,
+                          live_trunc=shadow_live_cap)
         return out[3] >= 0.0, stats
 
     def closest(org, dirn, t_min, t_max) -> Hit:

@@ -9,8 +9,9 @@ BLINN_PHONG (param0 = shininess, param1 = specular strength), MIRROR
 Hit attributes come from the baked shade records of the pair-cluster
 accel (one row gather per hit): world-space records for the flat accel,
 object-space records plus a per-instance table for the two-level accel.
-Base-color textures and alpha cutout are not ported yet (ROADMAP §1
-item 11).
+The packet BVH has no records: its hits resolve per field from the
+DeviceScene (``resolve_hit``). Base-color textures and alpha cutout are
+not ported yet (ROADMAP §1 item 11).
 """
 
 from __future__ import annotations
@@ -122,25 +123,67 @@ def resolve_hit_packed_tl(shade_rows, inst_table, org, dirn, t, u, v, slot,
     )
 
 
+def resolve_hit(ds, org, dirn, t, u, v, tri, inst) -> HitAttrs:
+    """Per-field resolver for accels without shade records (the packet
+    BVH): gathers the triangle, its instance's normal matrix and
+    material override from the DeviceScene. Misses may pass any (clamped)
+    ids; callers gate on the hit mask."""
+    tri = torch.clamp(tri, 0, ds.tri_v0.shape[0] - 1).long()
+    inst = torch.clamp(inst, 0, ds.inst_mesh.shape[0] - 1).long()
+    w = 1.0 - u - v
+    v0, v1, v2 = ds.tri_v0[tri], ds.tri_v1[tri], ds.tri_v2[tri]
+    n_obj = cross(v1 - v0, v2 - v0)
+    nrm_mat = ds.inst_nrm[inst]  # (N, 3, 3)
+    n_geom = normalize(_mat3_vec(nrm_mat, n_obj))
+    ns_obj = (w[:, None] * ds.tri_n0[tri] + u[:, None] * ds.tri_n1[tri]
+              + v[:, None] * ds.tri_n2[tri])
+    n_shade = normalize(_mat3_vec(nrm_mat, ns_obj))
+    pos = org + t[:, None] * dirn
+    front_face = dot(n_geom, dirn) < 0.0
+    n_geom = _where3(front_face, n_geom, -n_geom)
+    n_shade = _where3(dot(n_shade, n_geom) >= 0.0, n_shade, -n_shade)
+    override = ds.inst_mat_override[inst]
+    mat_id = torch.where(override >= 0, override, ds.tri_mat[tri])
+    mat_id = torch.clamp(mat_id, 0, ds.mat_kind.shape[0] - 1)
+    m = mat_id.long()
+    return HitAttrs(
+        pos=pos,
+        n_geom=n_geom,
+        n_shade=n_shade,
+        front_face=front_face,
+        mat_id=mat_id,
+        kind=ds.mat_kind[m],
+        albedo=ds.mat_albedo[m],
+        emission=ds.mat_emission[m],
+        param0=ds.mat_param0[m],
+        param1=ds.mat_param1[m],
+    )
+
+
 def make_resolver(ds, accel):
-    """The hit-attribute resolver for a pair-cluster accel: the two-level
-    path (object-space records + instance table) for a PairAccelTL, the
-    world-space record path otherwise."""
-    shade_rows = accel.shade_rows
+    """The hit-attribute resolver for an accel: the two-level path
+    (object-space records + instance table) for a PairAccelTL, the
+    world-space record path for a PairAccel, and the per-field path for
+    an accel without shade records (PacketAccel)."""
+    shade_rows = getattr(accel, "shade_rows", None)
     inst_table = getattr(accel, "inst_table", None)
     if ds.tex_data.shape[0] > 1:
         raise NotImplementedError(
             "base-color textures are not ported yet (ROADMAP §1 item 11)")
 
-    if inst_table is not None:
+    if shade_rows is not None and inst_table is not None:
         def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
             del tri
             return resolve_hit_packed_tl(shade_rows, inst_table, org, dirn,
                                          t, u, v, slot, inst)
-    else:
+    elif shade_rows is not None:
         def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
             del tri, inst
             return resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot)
+    else:
+        def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
+            del slot
+            return resolve_hit(ds, org, dirn, t, u, v, tri, inst)
 
     return resolve
 

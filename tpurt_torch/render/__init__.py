@@ -6,9 +6,9 @@ progressive batches through the staged wave loop on the card (or on
 (FrameState, stats). It keeps the reference's safety nets: the uncapped
 re-render when a live-wave cap cut alive rays, and the budget retries —
 a render whose trace reported a pair-budget overflow (the per-tile clamp
-of ``bvh_tile``, or ``bvh_pair``'s pairs per ray) is re-rendered with
-doubled budgets, and ``BudgetOverflowError`` is raised when the retries
-run out.
+or the pair-list capacities of ``bvh_tile``, or ``bvh_pair``'s pairs per
+ray) is re-rendered with doubled budgets, and ``BudgetOverflowError`` is
+raised when the retries run out.
 """
 
 from __future__ import annotations
@@ -44,10 +44,11 @@ def _check_supported(config: RenderConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for every
     config the port does not carry yet."""
     kind = config.resolved_intersector()
-    if kind not in ("bvh_tile", "bvh_pair"):
+    if kind not in ("bvh_tile", "bvh_pair", "bvh_packet"):
         raise NotImplementedError(
             f"intersector {kind!r} is not ported (ROADMAP §1 item 15: "
-            "alternates and oracles; bvh_tile and bvh_pair are)")
+            "alternates and oracles; bvh_tile, bvh_pair and bvh_packet "
+            "are)")
     pipeline = config.resolved_pipeline()
     if pipeline != "staged":
         raise NotImplementedError(
@@ -65,17 +66,21 @@ def _check_supported(config: RenderConfig) -> None:
 
 
 def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
-    """The pair-cluster accel on ``device`` (the card unless the caller
-    asks for the CPU), picked as the reference picks it: for ``bvh_tile``
+    """The accel on ``device`` (the card unless the caller asks for the
+    CPU), picked as the reference picks it: the packet BVH for
+    ``bvh_packet``; else the pair-cluster accel, for ``bvh_tile``
     two-level when the config asks for it, or on "auto" when instances
     reuse meshes at least 2× and the tables fit pair_meta's encoding;
     flat otherwise, and always flat for ``bvh_pair``."""
+    from tpurt_torch.bvh.cluster import build_packet_accel
     from tpurt_torch.bvh.paircluster import (
         INST_SHIFT, ROWS_PER_CLUSTER, TRIS_PER_CLUSTER, build_pair_accel,
         build_pair_accel_two_level,
     )
 
     device = torch_device(device)
+    if config.resolved_intersector() == "bvh_packet":
+        return build_packet_accel(ds, meta, scene=scene).to(device)
 
     total_instanced = sum(meta.mesh_tri_ranges[m][1] for m in meta.inst_mesh)
     unique = sum(r[1] for r in meta.mesh_tri_ranges)

@@ -28,16 +28,20 @@ class RenderConfig:
     seed: int = 0
     exposure: float = 1.0
     # "auto" | "brute" | "bvh" | "bvh_packet" | "bvh_pair" | "bvh_tile";
-    # the port implements bvh_tile ("auto" resolves to it) and bvh_pair
+    # the port implements bvh_tile ("auto" resolves to it), bvh_pair and
+    # bvh_packet
     intersector: str = "auto"
     # tile-accel instancing: "auto" | "flatten" | "two_level"
     instancing: str = "auto"
     # bvh_pair: static (ray, cluster) pair capacity per trace = rays ×
     # pairs_per_ray; bvh_tile: per-tile cluster clamp (0 = all clusters,
     # exact). An overflow of either is flagged and render_scene retries
-    # with doubled budgets. The pairs_avg* capacities size the
-    # reference's pair-segment launches, which the port does not carry;
-    # they are kept (and doubled) so configs stay interchangeable.
+    # with doubled budgets. The pairs_avg* budgets (pairs per tile on
+    # average) size bvh_tile's pair lists where entry rows are off: per
+    # wave kind (primary, bounce, shadow) the grid-over-pairs capacity
+    # under TPURT_PAIR_LOOP=0, and their maximum the pair-segment
+    # capacity of a 256-tile launch (TPURT_ENTRY_ROWS=0, or scenes past
+    # the entry-row gate). Their overflows retry like the clamp's.
     pairs_per_ray: int = 8
     pairs_per_tile: int = 0
     pairs_avg: int = 48

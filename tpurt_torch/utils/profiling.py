@@ -1,7 +1,7 @@
 """Where one render batch spends its device time.
 
     python3 -m tpurt_torch.utils.profiling [--preset bunny] [--out FILE]
-        [--intersector bvh_tile|bvh_pair] [--pairs-per-tile K]
+        [--intersector bvh_tile|bvh_pair|bvh_packet] [--pairs-per-tile K]
         [--pairs-per-ray K]
 
 Renders one warm batch of the preset on CUDA three times, with the given
@@ -9,15 +9,20 @@ intersector and pair budgets (no budget retries; the overflow flag is
 reported): once by the host clock, once with CUDA events around every
 stage of the staged loop (raygen, trace[b], shade[b], occlude[b],
 resolve) and once under ``torch.profiler`` for device time by kernel
-name and the device's busy share of the batch's wall time. Prints
-one JSON object (and writes it to ``--out``) with the card's name and
-power limit beside every number. Needs a CUDA device.
+name and the device's busy share of the batch's wall time. With
+``bvh_packet`` it also reports the walk's counters on the primary wave
+(node steps and leaf rows, summed over its rays). The tile intersector's
+switches are read from the environment (``TPURT_ENTRY_ROWS=0``,
+``TPURT_PAIR_LOOP=0``). Prints one JSON object (and writes it to
+``--out``) with the card's name and power limit beside every number.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -116,6 +121,16 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
         rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    launches = kernels.launch_counts()
+    walk = None
+    if hasattr(renderer.closest[0], "traversal_stats"):  # the packet BVH
+        state = renderer.raygen(cam, seed, 0)
+        tmax = torch.where(state.alive, float("inf"), -1.0)
+        _, counters = renderer.closest[0].traversal_stats(
+            state.org, state.dirn, 0.0, tmax)
+        steps, leaf_rows = (float(x) for x in counters.sum(dim=0))
+        walk = {"primary_rays": state.org.shape[0], "node_steps": steps,
+                "leaf_rows": leaf_rows}
     return {
         "card": _card(),
         "preset": preset,
@@ -132,7 +147,11 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
         "profiled_batch_s": prof_wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (prof_wall * 1e3)),
-        "launches": kernels.launch_counts(),
+        "switches": {k: os.environ[k] for k in ("TPURT_ENTRY_ROWS",
+                                                "TPURT_PAIR_LOOP")
+                     if k in os.environ},
+        "launches": launches,
+        "packet_walk": walk,
         "kernels_ms": [{"name": k[:120], "ms": ms, "calls": n}
                        for k, ms, n in rows[:30]],
     }
@@ -142,7 +161,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="bunny")
     ap.add_argument("--intersector", default="auto",
-                    choices=("auto", "bvh_tile", "bvh_pair"))
+                    choices=("auto", "bvh_tile", "bvh_pair",
+                             "bvh_packet"))
     ap.add_argument("--pairs-per-tile", type=int, default=None)
     ap.add_argument("--pairs-per-ray", type=int, default=None)
     ap.add_argument("--out", default=None)

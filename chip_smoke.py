@@ -32,10 +32,18 @@ Phases, in order; any failure exits nonzero and prints no result:
                 K1 two-level + sc) and through per-cluster entries (K2
                 over the 2430 instance-cluster boxes, K1 two-level); the
                 primary and first shadow waves of a cornell 512×512 ×
-                16 spp batch (K1 all-pairs, K4 all-pairs). Both sides are
-                timed with CUDA events, and each kernel's bound (the least
-                time the card could take for the same work) is computed
-                from the wave's shapes and data;
+                16 spp batch (K1 all-pairs, K4 all-pairs). K1 is also held
+                to tileloop_plain on edge-case lists cut from those waves
+                (a tile of 0 entries, 1 entry, an odd count, a full row,
+                and a far break right after a fetch ahead), flat and as
+                pair segments (bunny), two-level with per-cluster and
+                supercluster entries (sponza), closest and lean. Both sides
+                are timed with CUDA events, and each kernel's bound (the
+                least time the card could take for the same work) is
+                computed from the wave's shapes and data: for K1 and K4
+                the box and row tests the walk cannot avoid
+                (tilewave.tileloop_work_plain, on at most 512 tiles of a
+                wave, scaled);
   4. render   — each preset at its own size, one batch, through
                 render_scene(device="cuda"): bunny (8 spp), sponza (2
                 spp), cornell (16 spp) and hello_triangle (1 spp), the
@@ -87,12 +95,31 @@ GOLDEN_BIAS = 1e-3  # energy bias bar of the chaos-dominated fixtures
 K1_SLOT_AGREE = 0.9999  # share of live rays whose slot must match
 K1_T_RTOL = 1e-6
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
-# HBM bytes/s and float32 operations/s outside the tensor cores
+# HBM bytes/s, and float32 operations/s outside the tensor cores counted
+# without multiply-add: 132 SMs x 128 lanes x 1.98 GHz. The data sheet's
+# 67e12 counts an FMA as two operations; every port kernel builds with
+# -fmad=false (kernels/cuda_build.py), so each multiply and each add is an
+# instruction of its own
 HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
+F32_OPS_S = 33.5e12
 SLAB_OPS = 28  # one ray against one box: 3 axes x (2 sub, 2 mul, min,
 # max, running max, running min) plus the hit test and the accumulation
 MT_OPS = 60  # one Moller-Trumbore test with its fold (pairwave.py:75-112)
+ROW_OPS = SLAB_OPS + 12 * MT_OPS  # a row: its sub-box and 12 triangles
+WORK_TILES = 512  # tiles of a wave the walk-work count visits, at most
+
+
+def f32_ops_s() -> float:
+    """F32_OPS_S, once the kernels' nvcc flags are the ones it assumes:
+    with multiply-add contraction a bound at this rate would be up to 2x
+    too loose."""
+    from tpurt_torch.kernels import cuda_build
+
+    if "-fmad=false" not in cuda_build.NVCC_FLAGS:
+        raise AssertionError("F32_OPS_S counts a multiply and an add as two "
+                             "instructions: revisit it for kernels built "
+                             "without -fmad=false")
+    return F32_OPS_S
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -177,7 +204,7 @@ def batch_waves(name: str, device, spp: int, sort: bool):
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the f32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / f32_ops_s()
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
@@ -315,13 +342,45 @@ def hold_to_k1_bars(kernel, label, k, p, tmv, n_entries):
     return max_abs, n_live - int(same.sum())
 
 
-def tile_bound(n, n_out, rows, tl, list_bytes, n_entries) -> dict:
+def walk_work(label, wave, rows, entry, counts, scale, any_hit, p, tl):
+    """The box and row tests a front-to-back walk over these entries
+    cannot avoid (tilewave.tileloop_work_plain, final bt from the plain
+    result ``p``), counted on every n-th tile so that at most WORK_TILES
+    are visited and scaled to the whole wave. Returns (box tests, row
+    tests)."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    n_tiles = entry.shape[0]
+    step = max(1, -(-n_tiles // WORK_TILES))
+    idx = torch.arange(0, n_tiles, step, device=entry.device)
+    ray = (idx[:, None] * tw.TILE
+           + torch.arange(tw.TILE, device=entry.device)[None, :]).reshape(-1)
+    sub = [x[ray].contiguous() for x in wave]
+    two_level = tl.get("pair_meta") is not None
+    boxes, row_tests = tw.tileloop_work_plain(
+        *sub, rows, entry[idx].contiguous(), counts[idx].contiguous(), scale,
+        any_hit, bt=p[0][ray], bs=p[3][ray],
+        bi=p[4][ray] if two_level else None, **tl)
+    f = n_tiles / idx.numel()
+    boxes, row_tests = float(boxes.sum()) * f, float(row_tests.sum()) * f
+    log(f"[kernels] {label}: walk work on 1 tile in {step} ({idx.numel()} "
+        f"of {n_tiles}), scaled to the wave: {boxes:.6g} box tests, "
+        f"{row_tests:.6g} row tests ({row_tests / max(boxes, 1):.4f} a box)")
+    return boxes, row_tests
+
+
+def tile_bound(n, n_out, rows, tl, list_bytes, work) -> dict:
     """K1/K4: each ray read once (org, dirn, inv_d, tmax), the rows,
-    tables and entry lists once, the outputs once; at least one box test
-    per ray of a tile per entry it walks."""
+    tables and entry lists once, the outputs once; the walk's unavoidable
+    work ``work`` = (box tests, row tests), 28 operations a box and 28 + 12
+    x 60 a row."""
     table_bytes = sum(t.numel() * 4 for t in tl.values() if t is not None)
-    return bound(n * 40 + rows.numel() * 4 + table_bytes + list_bytes
-                 + n * 4 * n_out, float(n_entries) * 1024 * SLAB_OPS)
+    boxes, row_tests = work
+    return dict(bound(n * 40 + rows.numel() * 4 + table_bytes + list_bytes
+                      + n * 4 * n_out, boxes * SLAB_OPS + row_tests * ROW_OPS),
+                box_tests=boxes, row_tests=row_tests)
 
 
 def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
@@ -339,12 +398,124 @@ def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
     max_abs, bad = hold_to_k1_bars("K1", label, k, p, tmv, n_entries)
     ms = cuda_ms(lambda: tw.tileloop_cuda(*args, **tl), 10)
     plain_ms = cuda_ms(lambda: tw.tileloop_plain(*args, **tl), 1)
-    log(f"[kernels] K1 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                mismatches=bad,
-                **tile_bound(org.shape[0], len(k), rows, tl,
-                             entry.numel() * 4 + counts.numel() * 4,
-                             n_entries))
+    work = walk_work(f"K1 {label}", wave, rows, entry, counts, scale,
+                     any_hit, p, tl)
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+               mismatches=bad,
+               **tile_bound(org.shape[0], len(k), rows, tl,
+                            entry.numel() * 4 + counts.numel() * 4, work))
+    log(f"[kernels] K1 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    return rec
+
+
+def break_point(deq, n: int, group: int):
+    """A group start b of a sorted list of n entry distances that the
+    far break can fire at with the group's rows already fetched and more
+    groups after it: b a positive multiple of ``group`` (K1 votes on a
+    group's first entry), b + group < n, and deq[b - 1] < deq[b], so a
+    cut between them lets the rays test the entries before b and none
+    from b on. The first such b in the list's second half, else the
+    first; None if there is none."""
+    starts = [b for b in range(group, n - group, group)
+              if float(deq[b]) > float(deq[b - 1])]
+    late = [b for b in starts if b >= n // 2]
+    return (late or starts or [None])[0]
+
+
+def edge_case(wave, entry, counts, scale, sc=False):
+    """Five tiles of a sorted wave whose entry lists sit at the edges of
+    K1's ring: 0 entries, 1 entry, an odd count, a full row (counts ==
+    cp, the longest list of the wave) and a list whose rays all stop
+    before a group start b (``break_point``, for the ring's group size:
+    tileloop.cu's kGroup entries a stage, one supercluster with ``sc``).
+    Their tmax is cut between the distances of entries b - 1 and b, so
+    every slice's far break fires at b, after b's rows were fetched ahead
+    and before later groups, and the block exits through the wait for
+    copies still in flight. Returns ((org, dirn, inv_d, tmax), entries
+    (5, cp), counts (5,), b)."""
+    import torch
+
+    from tpurt_torch.kernels import cuda_build
+    from tpurt_torch.kernels import tilewave as tw
+
+    group = 1 if sc else cuda_build.constant("kGroup")
+    dev = entry.device
+    c = counts.cpu()
+    full = int(torch.argmax(c))
+    cp = int(c[full])
+    deq_all = (entry[:, :cp] >> 16).float().cpu() * scale
+    last, b = None, None
+    for t in torch.argsort(c, descending=True, stable=True).tolist():
+        if t != full:
+            b = break_point(deq_all[t], min(int(c[t]), cp), group)
+            if b is not None:
+                last = t
+                break
+    many = torch.nonzero(c >= 3)[:, 0]
+    many = many[(many != full) & (many != (-1 if last is None else last))]
+    if last is None or cp < 4 or many.numel() < 3:
+        raise AssertionError("the wave has too few long entry lists")
+    pick = many[torch.linspace(0, many.numel() - 1, 3).long()].tolist()
+    src = [pick[0], pick[1], pick[2], full, last]
+    ent = entry[src, :cp].contiguous()
+    n_odd = min(int(c[src[2]]), cp)
+    n_odd -= 1 - n_odd % 2
+    n_last = min(int(c[last]), cp)
+    ray = (torch.tensor(src, device=dev)[:, None] * tw.TILE
+           + torch.arange(tw.TILE, device=dev)[None, :]).reshape(-1)
+    org, dirn, inv_d, tmv = (x[ray].contiguous() for x in wave)
+    deq = deq_all[last]
+    # below deq[b] even where deq[b - 1] and deq[b] are adjacent floats
+    cut = float(torch.minimum((deq[b - 1] + deq[b]) / 2,
+                              torch.nextafter(deq[b], deq[b - 1])))
+    rays = slice(4 * tw.TILE, 5 * tw.TILE)
+    tmv[rays] = torch.where(tmv[rays] >= 0, torch.clamp_max(tmv[rays], cut),
+                            tmv[rays])
+    counts5 = torch.tensor([0, 1, n_odd, cp, n_last], dtype=torch.int32,
+                           device=dev)
+    return (org, dirn, inv_d, tmv), ent, counts5, b
+
+
+def check_k1_edges(label, wave, rows, entry, counts, scale, any_hit,
+                   seg=False, **tl):
+    """K1 against tileloop_plain on the edge-case lists of ``edge_case``
+    (as pair segments with ``seg``), held to K1's bars; the tile with no
+    entries must return every ray's starting values, and every ray of the
+    last tile must end below the distance of the entry its break is cut
+    at."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    rays, ent, cnt, b = edge_case(wave, entry, counts, scale,
+                                  sc="sc_meta" in tl)
+    if seg:
+        args = (*rays, rows, *tw._rows_to_segments(ent, cnt), scale, any_hit)
+        k = tw.tileloop_seg_cuda(*args)
+        p = tw.tileloop_seg_plain(*args)
+    else:
+        args = (*rays, rows, ent, cnt, scale, any_hit)
+        k = tw.tileloop_cuda(*args, **tl)
+        p = tw.tileloop_plain(*args, **tl)
+    torch.cuda.synchronize()
+    kind = "any-hit" if any_hit else "closest"
+    hold_to_k1_bars("K1 edges", f"{label} {kind}{' segments' if seg else ''}"
+                    f" (counts {cnt.tolist()}, cp {ent.shape[1]}, the last "
+                    f"tile breaks at entry {b})", k, p, rays[3],
+                    int(cnt.sum()))
+    if not bool((p[0][4 * tw.TILE:] < (ent[4, b] >> 16).float() * scale)
+                .all()):
+        raise AssertionError(f"K1 edges {label}: a ray of the last tile "
+                             f"reaches entry {b}, so its far break may not "
+                             "fire there")
+    first = slice(0, tw.TILE)
+    tm0 = rays[3][first]
+    start = torch.where(tm0 >= 0, tm0, -1.0)
+    if not (torch.equal(k[0][first], start) and bool((k[3][first] == -1).all())
+            and bool((k[1][first] == 0).all())):
+        raise AssertionError(f"K1 edges {label}: the empty tile's rays "
+                             "changed")
 
 
 def check_seg(label, wave, accel, any_hit, pcap):
@@ -375,26 +546,29 @@ def check_seg(label, wave, accel, any_hit, pcap):
         raise AssertionError(f"K1-seg {label}: the pair list overflowed")
     ms = cuda_ms(lambda: tw.tileloop_seg_cuda(*args), 10)
     plain_ms = cuda_ms(lambda: tw.tileloop_seg_plain(*args), 1)
-    log(f"[kernels] K1-seg {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                mismatches=bad,
-                **tile_bound(wave[0].shape[0], len(k), rows, {},
-                             off.numel() * 4 + pair_cl.numel() * 4,
-                             int(n_pairs)))
+    entry, counts = tw._segments_to_rows(off, pair_cl)
+    work = walk_work(f"K1-seg {label}", wave, rows, entry, counts, scale,
+                     any_hit, p, {})
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+               mismatches=bad,
+               **tile_bound(wave[0].shape[0], len(k), rows, {},
+                            off.numel() * 4 + pair_cl.numel() * 4, work))
+    log(f"[kernels] K1-seg {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    return rec
 
 
-def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
-    """K4 against tilegrid_plain on one wave, with the lists of the main
-    path: the interval mask per launch chunk, no clamp, ``avg`` pairs a
-    tile doubled until no chunk overflows (as the budget retries do), the
-    chunks' lists end to end; every (tile, cluster) pair for all-pairs."""
-    import torch
-
+def grid_list(label, wave, accel, avg, all_pairs=False):
+    """K4's list of one wave as the main path builds it: the interval
+    mask per launch chunk, no clamp, ``avg`` pairs a tile doubled until no
+    chunk overflows (as the budget retries do), the chunks' lists end to
+    end; every (tile, cluster) pair for all-pairs. Returns (packed, chunk
+    tiles, avg, overflow)."""
     from tpurt_torch.kernels import tilewave as tw
 
-    lo, hi, rows = accel.cluster_lo, accel.cluster_hi, accel.tri_rows
+    lo, hi = accel.cluster_lo, accel.cluster_hi
     n_c = lo.shape[0]
-    org, dirn, inv_d, tmv = wave
+    org, dirn, _, tmv = wave
     n_tiles = org.shape[0] // tw.TILE
     while True:
         chunk = (n_tiles if all_pairs else
@@ -408,7 +582,20 @@ def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
         avg = min(2 * avg, n_c + 1)
     if len(launches) != 1:
         raise AssertionError(f"K4 {label}: {len(launches)} launches")
-    packed = launches[0][2]
+    return launches[0][2], chunk, avg, over
+
+
+def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
+    """K4 against tilegrid_plain on one wave, with the lists of the main
+    path (``grid_list``)."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    rows = accel.tri_rows
+    org, dirn, inv_d, tmv = wave
+    n_tiles = org.shape[0] // tw.TILE
+    packed, chunk, avg, over = grid_list(label, wave, accel, avg, all_pairs)
     n_pairs = int(((packed & 0xFFFF) > 0).sum())
     args = (org, dirn, inv_d, tmv, rows, packed, any_hit)
     kw = dict(all_pairs=all_pairs, **tl)
@@ -437,13 +624,20 @@ def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
     # beside the bound: the time if every pair tested all 96 triangles of
     # its cluster against all 1024 rays (no box culling)
     all_tests_ms = n_pairs * 1024 * (96 * MT_OPS + 9 * SLAB_OPS) \
-        / F32_OPS_S * 1e3
-    log(f"[kernels] K4 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms; every "
-        f"triangle of every pair at the f32 rate {all_tests_ms:.3f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                mismatches=bad,
-                **tile_bound(org.shape[0], len(k), rows, tl,
-                             packed.numel() * 4, n_pairs))
+        / f32_ops_s() * 1e3
+    # the walk's work over the tile's pairs in list order: no distance
+    # bits, so every real pair is a box test of every live ray
+    entry, counts = tw.grid_rows(packed, n_tiles)
+    work = walk_work(f"K4 {label}", wave, rows, entry, counts, 0.0, any_hit,
+                     p, tl)
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+               mismatches=bad,
+               **tile_bound(org.shape[0], len(k), rows, tl,
+                            packed.numel() * 4, work))
+    log(f"[kernels] K4 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); every triangle of "
+        f"every pair at the f32 rate {all_tests_ms:.3f} ms")
+    return rec
 
 
 def check_k5(label, raw, tables, any_hit, n_plain=65536):
@@ -534,9 +728,15 @@ def check_kernels(device) -> list:
                                               lo, hi)
     flat_c = check_k1("flat closest (bunny bounce)", waves["bounce"], rows,
                       entry, counts, scale, False)
+    for seg in (False, True):
+        check_k1_edges("flat (bunny bounce)", waves["bounce"], rows, entry,
+                       counts, scale, False, seg=seg)
     entry, counts, scale, _ = check_k2("bunny shadow", waves["shadow"], lo, hi)
     flat_a = check_k1("flat any-hit (bunny shadow)", waves["shadow"], rows,
                       entry, counts, scale, True)
+    for seg in (False, True):
+        check_k1_edges("flat (bunny shadow)", waves["shadow"], rows, entry,
+                       counts, scale, True, seg=seg)
     del entry
     k3 = {kind: check_k3(f"bunny {kind}", waves[kind], lo, hi)
           for kind in ("bounce", "shadow")}
@@ -592,6 +792,8 @@ def check_kernels(device) -> list:
                 f"two-level {mode} {'any-hit' if any_hit else 'closest'} "
                 f"(sponza {kind})", waves[kind], rows, entry, counts, scale,
                 any_hit, **tl, **extra)
+            check_k1_edges(f"two-level {mode} (sponza {kind})", waves[kind],
+                           rows, entry, counts, scale, any_hit, **tl, **extra)
             del entry
     del accel, waves
     torch.cuda.empty_cache()

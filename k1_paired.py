@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""The tile loop (K1) and the grid over pairs (K4) of this checkout
+against those of another checkout, on the waves chip_smoke.py holds them
+to, on one CUDA GPU.
+
+    python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell]
+        [--variant TAG:kName=V,kName=V ...] [--reps 10] [--out FILE]
+
+DIR is a checkout of the commit to compare with (for example the parent,
+unpacked with ``git archive``). The kernels of both checkouts are built
+from their own ``tpurt_torch/csrc`` with the same nvcc flags, and each
+``--variant`` builds a copy of this checkout's sources whose
+``constexpr int kName = ...;`` lines in csrc/tileloop.cu take the given
+values (the loop's shape: kSliceWarps, kScSliceWarps, kStages, kGroup,
+kRegCap, kTlRegCap, kTriLanes). For every case — K1 on the bunny's first
+bounce (closest) and shadow (lean any-hit) waves as entry rows and as
+pair segments, on chip_smoke's edge-case lists, on sponza's supercluster
+and per-cluster entries, on cornell's all-pairs rows, and K4 on the
+bunny's and cornell's grid lists — it checks every output of every other
+build bit-equal to this checkout's, then times each build by CUDA events
+(mean of ``--reps`` launches) in the order parent, tree, the variants,
+the variants reversed, tree, parent. The edge-case lists are cut for
+this checkout's ring (its kGroup). Prints each build's registers and
+spills (ptxas), the nvidia-smi name and power-limit line and a JSON
+object (also written to ``--out``); exits 1 if any output differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import re
+import shutil
+import sys
+
+import chip_smoke
+from chip_smoke import cuda_ms, log
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BUILD = os.path.join(ROOT, "tpurt_torch", "build", "paired")
+
+
+def build(csrc: str, tag: str, consts: dict | None = None):
+    """The kernel library of the sources in ``csrc`` (with the tile
+    loop's named constants replaced by ``consts``), built into BUILD."""
+    from tpurt_torch.kernels import cuda_build
+
+    src_dir = os.path.join(BUILD, tag)
+    shutil.rmtree(src_dir, ignore_errors=True)
+    os.makedirs(src_dir)
+    for name in cuda_build.SOURCES:
+        shutil.copy(os.path.join(csrc, name), src_dir)
+    if consts:
+        path = os.path.join(src_dir, "tileloop.cu")
+        with open(path) as f:
+            text = f.read()
+        for name, value in consts.items():
+            text, n = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};", text)
+            if n != 1:
+                raise ValueError(f"{tag}: no constant {name} in tileloop.cu")
+        with open(path, "w") as f:
+            f.write(text)
+    lib = cuda_build.build_library(src_dir,
+                                   os.path.join(src_dir, f"lib_{tag}.so"))
+    log(f"[build] {tag}: {lib.seconds:.2f} s")
+    return lib
+
+
+def registers(text: str) -> dict:
+    """Registers and spill bytes of each tile-loop and grid kernel variant
+    in a ptxas -v log, by name (flags as 0/1 in template order)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(tileloop_kernel|tilegrid_kernel)I((?:Lb\dE)+)",
+                          m.group(1))
+            name = (k.group(1) + "<" + ",".join(re.findall(r"Lb(\d)E",
+                                                           k.group(2))) + ">"
+                    if k else None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def scene_cases(scene: str, device):
+    """(case name, closure launching the kernel on the case's inputs) for
+    every case of ``scene``, built from the same waves as chip_smoke.py."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.utils.config import get_config
+
+    if scene == "cornell":
+        accel, waves, _ = chip_smoke.batch_waves("cornell", device, 16,
+                                                 sort=False)
+        n_c = accel.cluster_lo.shape[0]
+        for kind, any_hit in (("primary", False), ("shadow", True)):
+            wave = waves[kind]
+            n_tiles = wave[0].shape[0] // tw.TILE
+            entry = torch.arange(n_c, dtype=torch.int32, device=device)
+            entry = entry[None].expand(n_tiles, n_c).contiguous()
+            counts = torch.full((n_tiles,), n_c, dtype=torch.int32,
+                                device=device)
+            yield (f"K1 all-pairs cornell {kind}",
+                   lambda w=wave, e=entry, c=counts, a=any_hit:
+                   tw.tileloop_cuda(*w, accel.tri_rows, e, c, 0.0, a))
+            packed = chip_smoke.grid_list("cornell", wave, accel, n_c,
+                                          all_pairs=True)[0]
+            yield (f"K4 all-pairs cornell {kind}",
+                   lambda w=wave, pk=packed, a=any_hit:
+                   tw.tilegrid_cuda(*w, accel.tri_rows, pk, a,
+                                    all_pairs=True))
+        return
+    spp = 8 if scene == "bunny" else 2
+    accel, waves, _ = chip_smoke.batch_waves(scene, device, spp, sort=True)
+    rows = accel.tri_rows
+    if scene == "bunny":
+        modes = (("flat", accel.cluster_lo, accel.cluster_hi, {}),)
+        cfg = get_config("bunny")
+    else:
+        tl = dict(pair_meta=accel.pair_meta, inv_xform=accel.inv_xform)
+        modes = (("sc", accel.sc_lo, accel.sc_hi,
+                  dict(tl, sc_meta=accel.sc_meta)),
+                 ("cluster", accel.cluster_lo, accel.cluster_hi, tl))
+    for mode, lo, hi, tl in modes:
+        scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+        for kind, any_hit in (("bounce", False), ("shadow", True)):
+            wave = waves[kind]
+            org, _, inv_d, tmv = wave
+            entry = torch.sort(tw.entries_cuda(org, inv_d, tmv, lo, hi,
+                                               scale), dim=1).values
+            counts = (entry != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
+            yield (f"K1 {mode} {scene} {kind}",
+                   lambda w=wave, e=entry, c=counts, a=any_hit, t=tl, s=scale:
+                   tw.tileloop_cuda(*w, rows, e, c, s, a, **t))
+            rays, ent, cnt, _ = chip_smoke.edge_case(wave, entry, counts,
+                                                     scale, sc=mode == "sc")
+            yield (f"K1 edges {mode} {scene} {kind}",
+                   lambda r=rays, e=ent, c=cnt, a=any_hit, t=tl, s=scale:
+                   tw.tileloop_cuda(*r, rows, e, c, s, a, **t))
+            if scene != "bunny":
+                continue
+            off, pair_cl = tw._rows_to_segments(ent, cnt)
+            yield (f"K1 edges seg {scene} {kind}",
+                   lambda r=rays, o=off, pc=pair_cl, a=any_hit:
+                   tw.tileloop_seg_cuda(*r, rows, o, pc, scale, a))
+            cap_avg = max(cfg.pairs_avg, cfg.pairs_avg_bounce,
+                          cfg.pairs_avg_shadow)
+            pcap = min(tw.TILES_PER_LAUNCH * min(cap_avg, lo.shape[0]),
+                       tw.MAX_PAIRS_PER_LAUNCH)
+            off, pair_cl, _, _ = tw._wave_segments(
+                *wave, lo, hi, scale, tw.TILES_PER_LAUNCH, exact=True,
+                pairs_per_tile=0, pcap=pcap)
+            yield (f"K1 seg {scene} {kind}",
+                   lambda w=wave, o=off, pc=pair_cl, a=any_hit:
+                   tw.tileloop_seg_cuda(*w, rows, o, pc, scale, a))
+            avg = cfg.pairs_avg_shadow if any_hit else cfg.pairs_avg_bounce
+            packed = chip_smoke.grid_list(f"bunny {kind}", wave, accel,
+                                          avg)[0]
+            yield (f"K4 {scene} {kind}",
+                   lambda w=wave, pk=packed, a=any_hit:
+                   tw.tilegrid_cuda(*w, rows, pk, a))
+
+
+def main() -> int:
+    import torch
+
+    from tpurt_torch.kernels import cuda_build
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--scenes", default="bunny,sponza,cornell")
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("k1_paired: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    smi = chip_smoke.nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+
+    jobs = {"parent": (os.path.join(args.parent, "tpurt_torch", "csrc"),
+                       None),
+            "tree": (cuda_build.CSRC, None)}
+    for spec in args.variant:
+        tag, _, body = spec.partition(":")
+        jobs[tag] = (cuda_build.CSRC,
+                     dict(kv.split("=") for kv in body.split(",") if kv))
+    variants = list(jobs)[2:]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {tag: pool.submit(build, csrc, tag, consts)
+                   for tag, (csrc, consts) in jobs.items()}
+        libs = {tag: f.result() for tag, f in futures.items()}
+    report = {"card": smi, "builds": {}, "cases": {}}
+    for tag, lib in libs.items():
+        regs = registers(lib.log)
+        report["builds"][tag] = dict(seconds=lib.seconds, kernels=regs)
+        for name, r in sorted(regs.items()):
+            log(f"[build] {tag} {name}: {r}")
+    order = ["parent", "tree", *variants, *variants[::-1], "tree", "parent"]
+
+    def use(tag):
+        cuda_build.activate(libs[tag])
+
+    bad = 0
+    for scene in args.scenes.split(","):
+        for name, run in scene_cases(scene, device):
+            use("tree")
+            ref = run()
+            equal = {}
+            for tag in libs:
+                if tag == "tree":
+                    continue
+                use(tag)
+                out = run()
+                equal[tag] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                bad += not equal[tag]
+            ms = {tag: [] for tag in libs}
+            for tag in order:
+                use(tag)
+                run()
+                ms[tag].append(cuda_ms(run, args.reps))
+            report["cases"][name] = dict(ms=ms, bit_equal_to_tree=equal)
+            log(f"[paired] {name}: " + "; ".join(
+                f"{tag} " + " / ".join(f"{t:.3f}" for t in ms[tag])
+                for tag in libs) + " ms; bit-equal to the tree: "
+                + ", ".join(f"{t} {e}" for t, e in equal.items()))
+            del ref
+        torch.cuda.empty_cache()
+    use("tree")
+    text = json.dumps(report)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+    print(smi)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

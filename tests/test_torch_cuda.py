@@ -45,10 +45,14 @@ def cuda_device():
 def wave(cuda_device):
     """Three tiles of seeded random rays around bunny_standin(3) (14
     clusters), with capped tmax and some dead lanes, on the card."""
+    return _standin_wave(cuda_device, 3)
+
+
+def _standin_wave(cuda_device, n_tiles):
     scene = bunny_standin(subdivisions=3)
     accel = build_pair_accel(None, scene_meta(scene), scene=scene)
     rng = np.random.default_rng(7)
-    n = 3 * tw.TILE
+    n = n_tiles * tw.TILE
     center = (accel.cluster_lo.min(0) + accel.cluster_hi.max(0)) / 2
     org = center + rng.normal(size=(n, 3)) * 4.5
     d = center + rng.normal(size=(n, 3)) * 1.2 - org
@@ -141,12 +145,12 @@ def _k1_modes_accel(mode, device):
     return accel.to(device)
 
 
-def _k1_modes_case(mode, device):
+def _k1_modes_case(mode, device, n_tiles=3):
     """Seeded rays, tables and sorted entries for one K1 mode: all-pairs
     on the Cornell box, two-level on sponza_standin(8, 3), two-level with
     supercluster entries on the full sponza_standin()."""
     rng = np.random.default_rng(11)
-    n = 3 * tw.TILE
+    n = n_tiles * tw.TILE
     acc = _k1_modes_accel(mode, device)
     lo = acc.cluster_lo.amin(0).cpu().numpy()
     hi = acc.cluster_hi.amax(0).cpu().numpy()
@@ -163,8 +167,9 @@ def _k1_modes_case(mode, device):
     if mode == "allpairs":
         n_c = acc.cluster_lo.shape[0]
         entry = torch.arange(n_c, dtype=torch.int32, device=device)
-        entry = entry[None].expand(3, n_c).contiguous()
-        counts = torch.full((3,), n_c, dtype=torch.int32, device=device)
+        entry = entry[None].expand(n_tiles, n_c).contiguous()
+        counts = torch.full((n_tiles,), n_c, dtype=torch.int32,
+                            device=device)
         return (org, dirn, inv_d, tmax, acc.tri_rows, entry, counts, 0.0), tl
     tl = dict(pair_meta=acc.pair_meta, inv_xform=acc.inv_xform)
     lo_e, hi_e = acc.cluster_lo, acc.cluster_hi
@@ -199,6 +204,36 @@ def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
     assert float(rel.max()) <= 1e-6
     if len(k) == 5:
         assert torch.equal(k[4][same], p[4][same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["flat", "seg", "tl", "tl_sc"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "lean_any"])
+def test_tileloop_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
+    """K1 on entry lists at the edges of its ring (chip_smoke.edge_case:
+    none, one, an odd count, a full row, a far break at a group start
+    right after its rows were fetched ahead), flat, as pair segments,
+    two-level and with superclusters: held to the plain version's bars
+    by chip_smoke.check_k1_edges, which raises on a miss; the tile
+    without entries keeps its start values, and the last tile's rays all
+    end below the entry their break is cut at."""
+    import chip_smoke
+
+    if mode in ("flat", "seg"):
+        w = _standin_wave(cuda_device, 5)
+        acc = w["accel"]
+        entry = tw.entries_cuda(w["org"], w["inv_d"], w["tmax"],
+                                acc.cluster_lo, acc.cluster_hi, w["scale"])
+        counts = (entry != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
+        entry = torch.sort(entry, dim=1).values
+        args = (w["org"], w["dirn"], w["inv_d"], w["tmax"], acc.tri_rows,
+                entry, counts, w["scale"])
+        tl = {}
+    else:
+        args, tl = _k1_modes_case(mode, cuda_device, n_tiles=5)
+    org, dirn, inv_d, tmax, rows, entry, counts, scale = args
+    chip_smoke.check_k1_edges(mode, (org, dirn, inv_d, tmax), rows, entry,
+                              counts, scale, any_hit, seg=mode == "seg", **tl)
 
 
 @pytest.mark.cuda

@@ -16,70 +16,184 @@
 //   kSc        entries are superclusters: sc_meta[sid] gives the first
 //              child cluster (v & 0xFFFF) and the child count (v >> 16,
 //              at most 8); the children are consecutive clusters with
-//              contiguous rows, so the block copies all of them at once
-//              and runs each child's box pre-test and row tests. With
-//              kTwoLevel the children share one instance, so the ray is
-//              transformed once per supercluster;
+//              contiguous rows, so one copy brings all of them and each
+//              child gets its box pre-test and row tests. With kTwoLevel
+//              the children share one instance, so the ray is transformed
+//              once per supercluster;
 //   kSeg       the pair-segment mode: the tile's entries are
 //              pair_cl[off[tile] .. off[tile + 1]) of one flat,
 //              tile-major list instead of the first counts[tile] words of
 //              its entry row (flat or two-level; never with kSc).
 //
-// One block per 1024-ray tile, one thread per ray. The block walks the
-// tile's front-to-back entries ((tn_q << 16) | id, sorted by the caller).
-// Per entry it copies the rows (8 x 128 f32 = 4 KB per cluster, up to
-// 32 KB per supercluster) into shared memory; each thread then runs the
-// cluster box pre-test (lanes
-// 126-127 of the cluster's rows 0-2), the 8 row sub-box tests (lanes
-// 120-125) and the 12 Moller-Trumbore tests of every surviving row against
-// its own ray. Candidates fold with strict '<' in entry, child, row and
+// Per ray the work is fixed by its own walk: for each of its tile's
+// front-to-back entries ((tn_q << 16) | id, sorted by the caller) whose
+// quantized distance deq is not above the ray's best t, the cluster box
+// pre-test (lanes 126-127 of the cluster's rows 0-2), the 8 row sub-box
+// tests (lanes 120-125) and the 12 Moller-Trumbore tests of every
+// surviving row. Candidates fold with strict '<' in entry, child, row and
 // lane order, so ties keep the earlier candidate, exactly as the
 // reference's fold does. The lean any-hit variant runs the division-free
 // window test of _row_occluded_smem and retires an occluded lane with
-// bt = -1, bs = 0.
+// bt = -1, bs = 0. Since entries are sorted by deq and a ray's best t only
+// falls, a ray skips every entry after its first skipped one: so any group
+// of rays may stop walking once all of its rays are below the next deq
+// (the far break), and the result of every ray is the same whichever group
+// it walks in and however far ahead the rows are fetched.
 //
-// Far break: the entry's quantized distance is a floor, so it lower-bounds
-// the slab entry of every ray that can hit the cluster (in sc mode, of the
-// superbox, which contains every child). Once every lane's best t (tmax
-// for misses, -1 for dead or occluded lanes) is below it, no later entry
-// can change any lane: __syncthreads_and ends the tile. A thread whose own
-// best t is already below it skips the entry's work. Doing the box tests
-// per thread instead of per tile only prunes more; it changes no result.
+// The walk. A tile's 1024 rays are cut into slices (kSliceWarps warps,
+// kScSliceWarps with supercluster entries); each
+// slice is one block, so the grid is n_tiles x slices and several blocks
+// share an SM. Each block walks its tile's whole entry list for its own
+// rays, in groups of kGroup entries (one supercluster with kSc). At each
+// group a block-wide vote (__syncthreads_and over the slice) is its far
+// break; a smaller, coherent slice of octant-sorted rays breaks earlier,
+// and the warps of one slice wait only for each other, once per group,
+// while the other resident blocks keep the SM busy. A warp skips an entry
+// that none of its rays reaches.
 //
-// What bounds it on this card: latency of the serial entry loop. Each
-// entry is a dependent chain (barrier, row copy, barrier, box tests, up to
-// 96 triangle tests per cluster) and the trip count varies per tile, so
-// the block spends much of its time waiting on the copy and on its
-// slowest warp. The simple design keeps 1024 threads per block (latency is
-// hidden only across warps of one tile) and plain loads plus
-// __syncthreads for the copy; double buffering with cp.async or TMA is
-// later work. The sc variant runs the same serial loop with an up to 8x
-// larger copy per entry (32 KB of static shared memory), and the
-// two-level variants keep up to 9 more live registers per thread for the
-// object-space ray (ptxas: 47 registers flat closest, 53-59 in the
-// two-level and sc variants, no spills at 1024 threads).
+// The ring. The rows of a group (kGroup clusters of 8 x 128 f32 = 4 KB
+// each, or a supercluster's up to 8 clusters = 32 KB) are one stage of a
+// ring of kStages stages in dynamic shared memory. Lanes of warp 0 fetch
+// group g + kStages - 1 with 1-D bulk copies (cp.async.bulk, the TMA)
+// completing on the stage's mbarrier, issued right after the vote of group
+// g (which certifies every thread is done with the stage), so the rows of
+// the next group arrive while this one is tested. A warp that tests group
+// g waits on its stage's barrier; one that skips it does not. The entry
+// words and tables that say what to fetch are read before the vote, so
+// their latency hides behind it. A block that breaks early waits for every
+// copy it issued before it exits, so no copy lands in shared memory that a
+// later block owns. Shared memory per block: kStages x kGroup x 4 KB (32
+// KB), kStages x 32 KB (64 KB) with kSc; the launch raises the kernel's
+// dynamic shared-memory limit once.
+//
+// The rows. Per cluster each lane tests the cluster box and the 8 row
+// sub-boxes of its ray (the same shared address across the warp, float4
+// and float2 reads); that gives each lane the rows it must test. A warp
+// running each lane's rows itself runs every row one of its lanes needs,
+// 12 triangle tests each, whatever the other 31 lanes need. So where the
+// warp's rows are sparse (cluster_body: the rounds needed, at most 8 rows
+// a round and one row of a lane a round, below kCoopPer4 / 4 x the rows
+// any lane needs), groups of 4 lanes test one lane's next row together, 3
+// triangles each, and fold the row's winner as its strict-'<' fold in
+// lane order would (first minimum of (t, lane), or any occluder for the
+// lean test); where they are dense (all-pairs rows of a Cornell box), each
+// lane walks its own rows (lane_rows). Both give each ray exactly its
+// sequential walk: the same rows, in order, each against the best t it
+// had then.
+//
+// Registers: __launch_bounds__(threads, 65536 / (threads * cap)) with the
+// cap kRegCap (flat) or kTlRegCap (two-level: 9 more live registers for
+// the object-space ray); ptxas spills nothing at these caps.
+//
+// What bounds it on this card: the issue rate of the box and triangle
+// tests, and then the barrier per group (a slice waits for its slowest
+// warp) and the L2 reads of the rows, which each slice of a tile fetches
+// for itself.
 //
 // Built with -fmad=false and IEEE division (1/det, 1/d), matching the
-// reference's op order term for term.
+// reference's op order term for term; the wide shared-memory reads change
+// no arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 1024;          // rays per tile = threads per block
+constexpr int kTile = 1024;          // rays per tile
 constexpr int kRowsPerCluster = 8;
 constexpr int kLanesPerRow = 128;
 constexpr int kClusterFloats = kRowsPerCluster * kLanesPerRow;
+constexpr int kClusterBytes = kClusterFloats * 4;
 constexpr int kTrisPerRow = 12;
 constexpr int kLanesPerTri = 10;
 constexpr int kScSize = 8;           // children per supercluster, at most
 constexpr int kInstShift = 20;       // pair_meta: row base | inst << 20
 constexpr float kEpsDenom = 1e-12f;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The loop's shape (the note above).
+constexpr int kSliceWarps = 4;       // warps per block, cluster entries
+constexpr int kScSliceWarps = 8;     // the same, supercluster entries
+constexpr int kStages = 2;           // ring depth
+constexpr int kGroup = 4;            // cluster entries per stage
+constexpr int kRegCap = 72;          // registers per thread the bounds allow
+constexpr int kTlRegCap = 80;        // the same, two-level variants
+constexpr int kTriLanes = 4;         // lanes sharing one row's tests
+constexpr int kCoopPer4 = 8;         // shared rows while 4 x rounds < this
+                                     // x rows the warp's lanes touch
+
+template <bool kTwoLevel, bool kSc>
+struct Walk {
+  static constexpr int kThreads = 32 * (kSc ? kScSliceWarps : kSliceWarps);
+  static constexpr int kSlices = kTile / kThreads;
+  static constexpr int kEntries = kSc ? 1 : kGroup;  // entries per stage
+  static constexpr int kStageFloats =
+      (kSc ? kScSize : kGroup) * kClusterFloats;
+  static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+  static constexpr int kMinBlocks =
+      65536 / (kThreads * (kTwoLevel ? kTlRegCap : kRegCap));
+  static_assert(kTile % kThreads == 0, "a tile is whole slices");
+  static_assert(kEntries <= 32, "warp 0 fetches one entry per lane");
+  static_assert(kTrisPerRow % kTriLanes == 0 && 32 % kTriLanes == 0,
+                "a row's triangles split evenly over a group of lanes");
+};
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
+
+// --- the ring's barriers and copies (PTX for sm_90) ------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival of the stage's phase, with the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 1-D bulk copy global -> shared (16-byte aligned, a multiple of 16 bytes)
+// completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// --- the tests -------------------------------------------------------------
 
 // 1 / d with the sign-preserving clamp away from 0 of the reference.
 __device__ __forceinline__ float safe_inv(float d) {
@@ -122,70 +236,247 @@ __device__ __forceinline__ bool box_reachable(const Ray& r, float lox,
   return tn <= tf;
 }
 
-// One cluster's work for this thread's ray: the cluster box pre-test,
-// then per row the sub-box test and the 12 triangle tests. ``rows`` is
-// the cluster's 8 x 128 block in shared memory.
+// One Moller-Trumbore test of triangle j, t = (v0, e1, e2, slot), against
+// the ray, folded with strict '<' into the best (bt, bj, bu, bv, bs)
+// (closest) or into ``occ`` (lean, window bt_row).
 template <bool kLean>
-__device__ __forceinline__ void cluster_body(const float* rows, const Ray& r,
-                                             float inst, float& bt,
-                                             float& bu, float& bv,
-                                             float& bs, float& bi) {
-  // cluster box pre-test, far-limited by the current best t
-  if (!box_reachable(r, rows[126], rows[127], rows[kLanesPerRow + 126],
-                     rows[kLanesPerRow + 127], rows[2 * kLanesPerRow + 126],
-                     rows[2 * kLanesPerRow + 127], bt))
-    return;
+__device__ __forceinline__ void tri_test(const float (&t)[kLanesPerTri],
+                                         const Ray& r, int j, float bt_row,
+                                         bool& occ, float& bt, int& bj,
+                                         float& bu, float& bv, float& bs) {
+  const float v0x = t[0], v0y = t[1], v0z = t[2];
+  const float e1x = t[3], e1y = t[4], e1z = t[5];
+  const float e2x = t[6], e2y = t[7], e2z = t[8];
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  if (kLean) {
+    // division-free window test (tilewave._row_occluded_smem)
+    const float sg = det >= 0.f ? 1.f : -1.f;
+    const float ad = det * sg;
+    const float su = (tx * px + ty * py + tz * pz) * sg;
+    const float sv = (r.dx * qx + r.dy * qy + r.dz * qz) * sg;
+    const float st = (e2x * qx + e2y * qy + e2z * qz) * sg;
+    occ = occ || (ad > kEpsDenom && su >= 0.f && sv >= 0.f &&
+                  su + sv <= ad && st > 0.f && st < bt_row * ad);
+  } else {
+    const bool ok_det = fabsf(det) > kEpsDenom;
+    const float inv = 1.f / (ok_det ? det : 1.f);
+    const float u = (tx * px + ty * py + tz * pz) * inv;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+    const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
+    if (ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > 0.f &&
+        tt < bt) {
+      bt = tt;
+      bj = j;
+      bu = u;
+      bv = v;
+      bs = t[9];
+    }
+  }
+}
+
+// The rows of ``todo`` whose sub-box (lanes 120-125) the ray enters before
+// ``far``; every lane reads the same row at once.
+__device__ __forceinline__ unsigned rows_reached(const float* rows,
+                                                 const Ray& r, float far,
+                                                 unsigned todo) {
+  unsigned out = 0;
+#pragma unroll
   for (int rr = 0; rr < kRowsPerCluster; ++rr) {
     const float* row = rows + rr * kLanesPerRow;
-    if (!box_reachable(r, row[120], row[121], row[122], row[123], row[124],
-                       row[125], bt))
+    const float4 lo = *reinterpret_cast<const float4*>(row + 120);
+    const float2 hi = *reinterpret_cast<const float2*>(row + 124);
+    if ((todo >> rr & 1u) &&
+        box_reachable(r, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, far))
+      out |= 1u << rr;
+  }
+  return out;
+}
+
+// This lane's ray against the rows of ``todo`` of one cluster, in row
+// order: each row's sub-box test with the current best t, then its 12
+// triangle tests (three float4 loads a triangle pair, the same address
+// across the warp). A row outside ``todo`` is one the ray missed at a
+// larger best t, so it would miss now. ``tested``: todo's rows passed
+// their sub-box test at the current best t; a lean walk's best t holds
+// until it returns, so it skips the test again.
+template <bool kLean>
+__device__ __forceinline__ void lane_rows(const float* rows, const Ray& r,
+                                          float inst, unsigned todo,
+                                          bool tested, float& bt, float& bu,
+                                          float& bv, float& bs, float& bi) {
+  for (int rr = 0; rr < kRowsPerCluster; ++rr) {
+    if (!(todo >> rr & 1u)) continue;
+    const float* row = rows + rr * kLanesPerRow;
+    const float4 lo = *reinterpret_cast<const float4*>(row + 120);
+    const float2 hi = *reinterpret_cast<const float2*>(row + 124);
+    if (!(kLean && tested) &&
+        !box_reachable(r, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, bt))
       continue;
     bool occ = false;
+    int bj = kTrisPerRow;
     const float bt_row = bt;
-    for (int j = 0; j < kTrisPerRow; ++j) {
-      const float* tri = row + j * kLanesPerTri;
-      const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-      const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-      const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-      const float px = r.dy * e2z - r.dz * e2y;
-      const float py = r.dz * e2x - r.dx * e2z;
-      const float pz = r.dx * e2y - r.dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const float tx = r.ox - v0x;
-      const float ty = r.oy - v0y;
-      const float tz = r.oz - v0z;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      if (kLean) {
-        // division-free window test (tilewave._row_occluded_smem)
-        const float sg = det >= 0.f ? 1.f : -1.f;
-        const float ad = det * sg;
-        const float su = (tx * px + ty * py + tz * pz) * sg;
-        const float sv = (r.dx * qx + r.dy * qy + r.dz * qz) * sg;
-        const float st = (e2x * qx + e2y * qy + e2z * qz) * sg;
-        occ = occ || (ad > kEpsDenom && su >= 0.f && sv >= 0.f &&
-                      su + sv <= ad && st > 0.f && st < bt_row * ad);
-      } else {
-        const bool ok_det = fabsf(det) > kEpsDenom;
-        const float inv = 1.f / (ok_det ? det : 1.f);
-        const float u = (tx * px + ty * py + tz * pz) * inv;
-        const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-        if (ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 0.f &&
-            t < bt) {
-          bt = t;
-          bu = u;
-          bv = v;
-          bs = tri[9];
-          bi = inst;
-        }
-      }
+    const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+    for (int j = 0; j < kTrisPerRow / 2; ++j) {
+      const float4 a = q[5 * j], b = q[5 * j + 1], c = q[5 * j + 2];
+      const float4 d = q[5 * j + 3], e = q[5 * j + 4];
+      const float t0[kLanesPerTri] = {a.x, a.y, a.z, a.w, b.x,
+                                      b.y, b.z, b.w, c.x, c.y};
+      const float t1[kLanesPerTri] = {c.z, c.w, d.x, d.y, d.z,
+                                      d.w, e.x, e.y, e.z, e.w};
+      tri_test<kLean>(t0, r, 2 * j, bt_row, occ, bt, bj, bu, bv, bs);
+      tri_test<kLean>(t1, r, 2 * j + 1, bt_row, occ, bt, bj, bu, bv, bs);
     }
+    if (bj < kTrisPerRow) bi = inst;
     if (kLean && occ) {
       bt = -1.f;
       bs = 0.f;
       return;
+    }
+  }
+}
+
+// The cluster box pre-test (lanes 126-127 of the cluster's rows 0-2) of
+// this lane's ray, far-limited by its best t.
+__device__ __forceinline__ bool cluster_reachable(const float* rows,
+                                                  const Ray& r, float far) {
+  const float2 b0 = *reinterpret_cast<const float2*>(rows + 126);
+  const float2 b1 =
+      *reinterpret_cast<const float2*>(rows + kLanesPerRow + 126);
+  const float2 b2 =
+      *reinterpret_cast<const float2*>(rows + 2 * kLanesPerRow + 126);
+  return box_reachable(r, b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, far);
+}
+
+// One cluster's work for the warp's rays, each lane's ray in the parent's
+// order: the cluster box pre-test, then per row the sub-box test and the
+// 12 triangle tests. ``rows`` is the cluster's 8 x 128 block in shared
+// memory; a lane with ``live`` false takes no part. Every lane of the warp
+// calls it together.
+//
+// The triangle tests are shared out: each round, groups of kTriLanes lanes
+// each take the next row of one lane that still has rows to test (up to
+// 32 / kTriLanes such lanes a round), every lane of a group testing 12 /
+// kTriLanes of the row's triangles against the owner's ray. The group's
+// first minimum of (t, lane of the row) among the candidates below the
+// owner's best t is exactly what the row's strict-'<' fold in lane order
+// keeps; the lean test ORs the group's window tests. A lane's rows go in
+// order, one a round, and after a closest win it re-tests the sub-boxes
+// of its remaining rows with its new best t, so every lane tests exactly
+// the rows, in the order and against the best t, of its own sequential
+// walk.
+template <bool kLean>
+__device__ __forceinline__ void cluster_body(const float* rows, const Ray& r,
+                                             float inst, bool live,
+                                             float& bt, float& bu, float& bv,
+                                             float& bs, float& bi) {
+  constexpr int kPairs = 32 / kTriLanes;             // rows tested a round
+  constexpr int kPerLane = kTrisPerRow / kTriLanes;  // triangles a lane
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / kTriLanes, sub = lane % kTriLanes;
+  const bool in = live && cluster_reachable(rows, r, bt);
+  if (!__any_sync(kFullMask, in)) return;
+  unsigned todo = rows_reached(rows, r, bt, in ? 0xFFu : 0u);
+  // rows dense across the warp: each lane walks its own (the warp runs
+  // every row one of its lanes needs); sparse: the lanes share them out
+  const unsigned any_row = __reduce_or_sync(kFullMask, todo);
+  const int n_rows = __popc(todo);
+  const int rounds = max(
+      static_cast<int>((__reduce_add_sync(kFullMask, n_rows) + kPairs - 1) /
+                       kPairs),
+      static_cast<int>(__reduce_max_sync(kFullMask, n_rows)));
+  if (4 * rounds >= kCoopPer4 * __popc(any_row)) {
+    lane_rows<kLean>(rows, r, inst, todo, true, bt, bu, bv, bs, bi);
+    return;
+  }
+  for (;;) {
+    const unsigned want = __ballot_sync(kFullMask, todo != 0);
+    if (!want) return;
+    // group grp serves the grp-th lane that wants a row (its lowest row)
+    unsigned w = want;
+    for (int i = 0; i < grp && w; ++i) w &= w - 1;
+    const bool busy = w != 0;
+    const int owner = busy ? __ffs(w) - 1 : lane;
+    Ray q;
+    q.ox = __shfl_sync(kFullMask, r.ox, owner);
+    q.oy = __shfl_sync(kFullMask, r.oy, owner);
+    q.oz = __shfl_sync(kFullMask, r.oz, owner);
+    q.dx = __shfl_sync(kFullMask, r.dx, owner);
+    q.dy = __shfl_sync(kFullMask, r.dy, owner);
+    q.dz = __shfl_sync(kFullMask, r.dz, owner);
+    const float bt_row = __shfl_sync(kFullMask, bt, owner);
+    const int rr = __shfl_sync(kFullMask, __ffs(todo) - 1, owner);
+    bool occ = false;
+    float ct = bt_row, cu = 0.f, cv = 0.f, cs = 0.f;
+    int cj = kTrisPerRow;  // none
+    if (busy) {
+      const float* row = rows + rr * kLanesPerRow;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int j = sub + kTriLanes * i;
+        const float2* p =
+            reinterpret_cast<const float2*>(row + kLanesPerTri * j);
+        const float2 a = p[0], b = p[1], c = p[2], d = p[3], e = p[4];
+        const float t[kLanesPerTri] = {a.x, a.y, b.x, b.y, c.x,
+                                       c.y, d.x, d.y, e.x, e.y};
+        tri_test<kLean>(t, q, j, bt_row, occ, ct, cj, cu, cv, cs);
+      }
+    }
+    // each served lane takes its group's result for its row
+    const int rank = __popc(want & ((1u << lane) - 1));
+    const bool served = todo != 0 && rank < kPairs;
+    if (kLean) {
+      const unsigned hits = __ballot_sync(kFullMask, occ);
+      if (served) {
+        if ((hits >> (rank * kTriLanes)) & ((1u << kTriLanes) - 1)) {
+          bt = -1.f;
+          bs = 0.f;
+          todo = 0;
+        } else {
+          todo &= todo - 1;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int off = 1; off < kTriLanes; off <<= 1) {
+        const float ot = __shfl_xor_sync(kFullMask, ct, off);
+        const int oj = __shfl_xor_sync(kFullMask, cj, off);
+        if (ot < ct || (ot == ct && oj < cj)) {
+          ct = ot;
+          cj = oj;
+        }
+      }
+      const int from = served ? rank * kTriLanes : lane;
+      const float rt = __shfl_sync(kFullMask, ct, from);
+      const int rj = __shfl_sync(kFullMask, cj, from);
+      const int win = served ? rank * kTriLanes + rj % kTriLanes : lane;
+      const float ru = __shfl_sync(kFullMask, cu, win);
+      const float rv = __shfl_sync(kFullMask, cv, win);
+      const float rs = __shfl_sync(kFullMask, cs, win);
+      bool fell = false;
+      if (served) {
+        todo &= todo - 1;
+        if (rj < kTrisPerRow) {
+          bt = rt;
+          bu = ru;
+          bv = rv;
+          bs = rs;
+          bi = inst;
+          fell = true;
+        }
+      }
+      // the lanes whose best t fell re-test their remaining rows with it
+      // (the others get their own rows back: their best t is unchanged)
+      if (__any_sync(kFullMask, fell)) todo = rows_reached(rows, r, bt, todo);
     }
   }
 }
@@ -196,17 +487,6 @@ __device__ __forceinline__ long cluster_row0(int c,
                                              const int32_t* pair_meta) {
   return kTwoLevel ? (pair_meta[c] & ((1 << kInstShift) - 1))
                    : static_cast<long>(c) * kRowsPerCluster;
-}
-
-// Copy n consecutive clusters' rows from row0 into shared memory, then the
-// barrier after which every thread reads them.
-__device__ __forceinline__ void stage_rows(float* rows,
-                                           const float* __restrict__ tri_rows,
-                                           long row0, int n) {
-  const float* src = tri_rows + row0 * kLanesPerRow;
-  for (int i = threadIdx.x; i < n * kClusterFloats; i += kTile)
-    rows[i] = src[i];
-  __syncthreads();
 }
 
 // The thread's ray in cluster c's space (two-level: object space) and the
@@ -242,8 +522,46 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
   return w;
 }
 
+// What lane ``lane`` of warp 0 copies for group g: entry g * kEntries +
+// lane's rows (its supercluster's children with kSc), or nothing (0
+// bytes) past the group's end.
+struct Fetch {
+  const float* src;
+  uint32_t bytes;
+};
+
+template <bool kTwoLevel, bool kSc>
+__device__ __forceinline__ Fetch group_fetch(
+    int g, int lane, int n, const int32_t* __restrict__ ent,
+    const float* __restrict__ tri_rows, const int32_t* __restrict__ pair_meta,
+    const int32_t* __restrict__ sc_meta) {
+  constexpr int kEntries = Walk<kTwoLevel, kSc>::kEntries;
+  const int p = g * kEntries + lane;
+  if (lane >= kEntries || p >= n) return {nullptr, 0u};
+  int c = ent[p] & 0xFFFF, nch = 1;
+  if (kSc) {
+    const int32_t v = sc_meta[c];
+    c = v & 0xFFFF;
+    nch = v >> 16;
+  }
+  return {tri_rows + cluster_row0<kTwoLevel>(c, pair_meta) * kLanesPerRow,
+          static_cast<uint32_t>(nch * kClusterBytes)};
+}
+
+// Warp 0 starts group g's copies into ``stage``: lane 0 arms the stage's
+// barrier with the group's bytes, then each lane copies its own entry's.
+__device__ __forceinline__ void group_issue(const Fetch& f, int lane,
+                                            float* stage, uint64_t* bar) {
+  const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, f.bytes);
+  if (lane == 0) mbar_expect(bar, total);
+  __syncwarp();
+  if (f.bytes)
+    bulk_copy(stage + lane * kClusterFloats, f.src, f.bytes, bar);
+}
+
 template <bool kLean, bool kTwoLevel, bool kSc, bool kSeg>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(Walk<kTwoLevel, kSc>::kThreads,
+                                  Walk<kTwoLevel, kSc>::kMinBlocks)
 tileloop_kernel(const float* __restrict__ org,
                 const float* __restrict__ dirn,
                 const float* __restrict__ inv_d,
@@ -258,10 +576,13 @@ tileloop_kernel(const float* __restrict__ org,
                 float* __restrict__ bt_out, float* __restrict__ bu_out,
                 float* __restrict__ bv_out, float* __restrict__ bs_out,
                 float* __restrict__ bi_out) {
-  __shared__ float rows[(kSc ? kScSize : 1) * kClusterFloats];
+  using W = Walk<kTwoLevel, kSc>;
+  extern __shared__ __align__(128) float ring[];  // kStages x kStageFloats
+  __shared__ uint64_t full[kStages];
 
-  const long tile = blockIdx.x;
-  const long ray = tile * kTile + threadIdx.x;
+  const long tile = blockIdx.x / W::kSlices;
+  const long ray = static_cast<long>(blockIdx.x) * W::kThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Ray w = load_ray(org, dirn, inv_d, ray);
   const float tm = tmax[ray];
   float bt = tm >= 0.f ? tm : -1.f;
@@ -269,33 +590,88 @@ tileloop_kernel(const float* __restrict__ org,
 
   const int n = kSeg ? off[tile + 1] - off[tile] : counts[tile];
   const int32_t* ent = kSeg ? entries + off[tile] : entries + tile * cp;
-  for (int p = 0; p < n; ++p) {
-    const int32_t e = ent[p];
-    const float deq = static_cast<float>(e >> 16) * scale;
-    // far break (also the barrier before the shared rows are replaced)
-    if (__syncthreads_and(bt < deq)) break;
-    const int id = e & 0xFFFF;
-    int c = id, nch = 1;  // first cluster and cluster count of the entry
-    if (kSc) {
-      const int32_t v = sc_meta[id];
-      c = v & 0xFFFF;
-      nch = v >> 16;
+  const int n_groups = (n + W::kEntries - 1) / W::kEntries;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int h = 0; h < kStages - 1 && h < n_groups; ++h)
+      group_issue(group_fetch<kTwoLevel, kSc>(h, lane, n, ent, tri_rows,
+                                                   pair_meta, sc_meta),
+                       lane, ring + h * W::kStageFloats, &full[h]);
+  }
+
+  int32_t e_next = n > 0 ? ent[0] : 0;
+  int g = 0;
+  for (; g < n_groups; ++g) {
+    const int32_t e0 = e_next;  // the group's first (nearest) entry
+    if (g + 1 < n_groups) e_next = ent[(g + 1) * W::kEntries];
+    const float deq0 = static_cast<float>(e0 >> 16) * scale;
+    // what this iteration fetches, read before the vote
+    const int gf = g + kStages - 1;
+    Fetch f = {nullptr, 0u};
+    if (warp == 0 && gf < n_groups)
+      f = group_fetch<kTwoLevel, kSc>(gf, lane, n, ent, tri_rows, pair_meta,
+                                      sc_meta);
+    // far break; also the point after which no thread reads group g - 1's
+    // stage, which group gf takes over
+    if (__syncthreads_and(bt < deq0)) break;
+    if (warp == 0 && gf < n_groups)
+      group_issue(f, lane, ring + (gf % kStages) * W::kStageFloats,
+                       &full[gf % kStages]);
+    // sorted: a ray below deq0 skips the whole group, and so does a warp
+    // of such rays
+    if (__all_sync(kFullMask, bt < deq0)) continue;
+    mbar_wait(&full[g % kStages], (g / kStages) & 1);
+    const float* stage = ring + (g % kStages) * W::kStageFloats;
+    for (int q = 0; q < W::kEntries; ++q) {
+      const int p = g * W::kEntries + q;
+      if (p >= n) break;
+      const int32_t e = q ? ent[p] : e0;
+      const bool live = !(bt < static_cast<float>(e >> 16) * scale);
+      if (!__any_sync(kFullMask, live)) continue;
+      const int id = e & 0xFFFF;
+      int c = id, nch = 1;  // first cluster and cluster count of the entry
+      if (kSc) {
+        const int32_t v = sc_meta[id];
+        c = v & 0xFFFF;
+        nch = v >> 16;
+      }
+      float inst;
+      const Ray r = cluster_ray<kTwoLevel>(w, c, pair_meta, inv_xform, inst);
+      for (int k = 0; k < nch; ++k) {
+        // an occluded lane (bt = -1) reaches no box: it takes no part
+        cluster_body<kLean>(stage + (q + k) * kClusterFloats, r, inst, live,
+                            bt, bu, bv, bs, bi);
+        if (kLean && __all_sync(kFullMask, bt < 0.f)) break;
+      }
     }
-    stage_rows(rows, tri_rows, cluster_row0<kTwoLevel>(c, pair_meta), nch);
-    if (bt < deq) continue;
-    float inst;
-    const Ray r = cluster_ray<kTwoLevel>(w, c, pair_meta, inv_xform, inst);
-    for (int k = 0; k < nch; ++k) {
-      cluster_body<kLean>(rows + k * kClusterFloats, r, inst, bt, bu, bv,
-                          bs, bi);
-      if (kLean && bt < 0.f) break;  // occluded: nothing left to find
-    }
+  }
+  // a block that broke early still owns the copies it issued ahead: wait
+  // for them before its shared memory can pass to another block
+  if (threadIdx.x == 0) {
+    for (int h = g; h < g + kStages - 1 && h < n_groups; ++h)
+      mbar_wait(&full[h % kStages], (h / kStages) & 1);
   }
   bt_out[ray] = bt;
   bu_out[ray] = bu;
   bv_out[ray] = bv;
   bs_out[ray] = bs;
   if (kTwoLevel) bi_out[ray] = bi;
+}
+
+// Copy n consecutive clusters' rows from row0 into shared memory, then the
+// barrier after which every thread reads them (the grid kernel's
+// staging: one 1024-thread block per tile).
+__device__ __forceinline__ void stage_rows(float* rows,
+                                           const float* __restrict__ tri_rows,
+                                           long row0, int n) {
+  const float* src = tri_rows + row0 * kLanesPerRow;
+  for (int i = threadIdx.x; i < n * kClusterFloats; i += kTile)
+    rows[i] = src[i];
+  __syncthreads();
 }
 
 // Grid over (tile, cluster) pairs: the Hopper port of the TPU kernel
@@ -313,16 +689,20 @@ tileloop_kernel(const float* __restrict__ org,
 // a binary search on the tile field) and the sentinel's initialisation is
 // the block's own. Per pair, per thread: the cluster box pre-test, then per
 // row the sub-box test and the 12 triangle tests folded with strict '<'
-// against the running best, as in cluster_body: the reference's row
+// against the running best (lane_rows): the reference's row
 // min-tree, row-winner fold and pair-winner fold keep the same candidate
 // (the first at the minimal t, in pair, row and lane order). There is no
 // far break (the pairs carry no entry distance). Any-hit runs the same
 // closest body and ends the tile once every lane is occluded (bs >= 0) or
 // dead (bt < 0), the reference's early-out; the caller reads bs >= 0 only.
 //
-// Bound on this card: as the loop kernel, the latency of the serial pair
-// loop (barrier, 4 KB row copy, barrier, tests); the primary interval mask
-// of the grid path passes more pairs per tile than the exact entries.
+// Bound on this card: the latency of the serial pair loop (barrier, 4 KB
+// row copy, barrier, tests); the primary interval mask of the grid path
+// passes more pairs per tile than the exact entries. It keeps the loop
+// kernel's first design (one 1024-thread block per tile, rows staged by
+// plain loads, each thread walking its own rows); the ring and the shared
+// rows above are later work for it (shared rows lost on the all-pairs
+// Cornell list, whose rows are dense).
 
 // First index of the tile-major pair list whose tile field is >= t.
 __device__ __forceinline__ int tile_start(const int32_t* __restrict__ pairs,
@@ -351,7 +731,7 @@ tilegrid_kernel(const float* __restrict__ org,
                 float* __restrict__ bt_out, float* __restrict__ bu_out,
                 float* __restrict__ bv_out, float* __restrict__ bs_out,
                 float* __restrict__ bi_out) {
-  __shared__ float rows[kClusterFloats];
+  __shared__ __align__(16) float rows[kClusterFloats];
   __shared__ int seg[2];
 
   const long tile = blockIdx.x;
@@ -377,7 +757,8 @@ tilegrid_kernel(const float* __restrict__ org,
     stage_rows(rows, tri_rows, cluster_row0<kTwoLevel>(c, pair_meta), 1);
     float inst;
     const Ray r = cluster_ray<kTwoLevel>(w, c, pair_meta, inv_xform, inst);
-    cluster_body<false>(rows, r, inst, bt, bu, bv, bs, bi);
+    if (cluster_reachable(rows, r, bt))
+      lane_rows<false>(rows, r, inst, 0xFFu, false, bt, bu, bv, bs, bi);
   }
   bt_out[ray] = bt;
   bu_out[ray] = bu;
@@ -394,7 +775,15 @@ void launch(const float* org, const float* dirn, const float* inv_d,
             const int32_t* pair_meta, const float* inv_xform,
             const int32_t* sc_meta, float* bt, float* bu, float* bv,
             float* bs, float* bi, cudaStream_t s) {
-  tileloop_kernel<kLean, kTwoLevel, kSc, kSeg><<<n_tiles, kTile, 0, s>>>(
+  using W = Walk<kTwoLevel, kSc>;
+  const auto kernel = tileloop_kernel<kLean, kTwoLevel, kSc, kSeg>;
+  // once per variant: the ring may pass the 48 KB a launch gets by
+  // default (with the barriers' static bytes); a refusal shows as the
+  // launch's error
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmemBytes);
+  (void)set;
+  kernel<<<n_tiles * W::kSlices, W::kThreads, W::kSmemBytes, s>>>(
       org, dirn, inv_d, tmax, tri_rows, entries, counts, off, cp, scale,
       pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi);
 }
@@ -459,7 +848,8 @@ void launch_grid(const float* org, const float* dirn, const float* inv_d,
 
 // Launch on ``stream``; returns cudaGetLastError() (0 = launched).
 // org/dirn/inv_d: (n_tiles*1024, 3) f32, tmax: (n_tiles*1024,) f32
-// (< 0 = dead lane), tri_rows: (R, 128) f32 with 8 rows per cluster.
+// (< 0 = dead lane), tri_rows: (R, 128) f32 with 8 rows per cluster,
+// 16-byte aligned (the rows are fetched by bulk copies).
 // Entry rows: entries (n_tiles, cp) i32 sorted per row, counts
 // (n_tiles,) i32, off null. Pair segments: entries the flat tile-major
 // list, off (n_tiles + 1,) i32 the segment bounds, counts null.
@@ -483,6 +873,8 @@ extern "C" int tpurt_tileloop(const float* org, const float* dirn,
   const bool sc = sc_meta != nullptr;
   const bool seg = off != nullptr;
   if (sc && seg) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(tri_rows) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (lean)
     launch_mode<true>(two_level, sc, seg, org, dirn, inv_d, tmax, tri_rows,
                       entries, counts, off, n_tiles, cp, scale, pair_meta,

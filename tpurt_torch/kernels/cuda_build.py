@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -105,6 +106,30 @@ def _build(srcs, out: str) -> str:
     if failed:
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     return log
+
+
+def build_library(src_dir: str, out: str) -> KernelLibrary:
+    """Build the kernel library of the sources in ``src_dir`` (csrc/ or a
+    copy of it, for example another checkout's) into ``out`` and load it,
+    without making it the process's library: ``activate`` does that."""
+    t0 = time.perf_counter()
+    log = _build([os.path.join(src_dir, s) for s in SOURCES], out)
+    return KernelLibrary(ctypes.CDLL(out), out, log, time.perf_counter() - t0)
+
+
+def activate(lib: KernelLibrary) -> None:
+    """Make ``lib`` the library that every later launch in this process
+    uses."""
+    _LOADED[:] = [lib]
+
+
+def constant(name: str, source: str = "tileloop.cu") -> int:
+    """The value V of ``constexpr int name = V;`` in a source of csrc/."""
+    with open(os.path.join(CSRC, source)) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    if len(found) != 1:
+        raise ValueError(f"{source}: no single constant {name}")
+    return int(found[0])
 
 
 def load() -> KernelLibrary:

@@ -585,6 +585,157 @@ def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs,
         bi[rw] = inst[win][better]
 
 
+def _box_exact(o, iv, lo, hi, far):
+    """The kernel's slab test (``box_reachable``) in its op order, no
+    padding: the box (lo, hi) is entered at or before ``far``."""
+    t0 = (lo - o) * iv
+    t1 = (hi - o) * iv
+    mn, mx = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
+                       torch.clamp_min(mn[..., 2], 0.0))
+    tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
+                       torch.minimum(mx[..., 2], far))
+    return tn <= tf
+
+
+def tileloop_work_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                        scale: float, any_hit: bool, bt=None, bs=None,
+                        bi=None, pair_meta=None, inv_xform=None,
+                        sc_meta=None):
+    """The work K1's front-to-back walk over these entries cannot avoid,
+    per ray: (box tests, row tests), int64 each.
+
+    A ray's walk ends at its final best t F: for the closest walk the
+    result's ``bt`` (with ``bs`` and, two-level, ``bi`` naming the hit),
+    for the lean any-hit walk ``tmax`` up to its first occluding row in
+    (entry, child, row) order, found here with the kernel's window test.
+    Box tests: the walk's units (an entry, or each child of a supercluster
+    entry) whose quantized distance ``(e >> 16) * scale`` is at most F —
+    the cluster box pre-test, 28 operations each. Row tests: the rows of
+    those units whose cluster box and sub-box the ray enters at or before
+    F (the kernel's slab arithmetic, object space for a two-level accel),
+    each a sub-box test and 12 Möller–Trumbore tests, and the row of the
+    closest hit, which a rounding at a box face may leave out of that
+    test. Any-hit counts nothing after the first occluding row. Dead rays
+    (tmax < 0) count nothing. Arguments as ``tileloop_plain``."""
+    dev = org.device
+    n = org.shape[0]
+    n_tiles = entries.shape[0]
+    two_level = pair_meta is not None
+    kids = SC_SIZE if sc_meta is not None else 1
+    boxes = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows_n = torch.zeros(n, dtype=torch.int64, device=dev)
+    alive = tmax >= 0.0
+    if any_hit:
+        far_all = torch.where(alive, tmax, -1.0)
+    else:
+        far_all = torch.where(alive, bt, -1.0)
+    p_all = int(counts.max()) if n_tiles else 0
+    if p_all == 0:
+        return boxes, rows_n
+    blocks = tri_rows.reshape(-1, ROWS_PER_CLUSTER, 128)
+    b_lo = torch.stack([blocks[:, 0, 126], blocks[:, 0, 127],
+                        blocks[:, 1, 126]], dim=-1)
+    b_hi = torch.stack([blocks[:, 1, 127], blocks[:, 2, 126],
+                        blocks[:, 2, 127]], dim=-1)
+    row_box = blocks[..., 120:126].contiguous()
+    meta = pair_meta.to(torch.int64) if two_level else None
+    if not any_hit:
+        # the hit's row: the first row holding its slot id (slot ids are
+        # unique over the real triangles, mesh slots in a two-level accel,
+        # whose instance then names the cluster; all-zero padding rows,
+        # which never hit, read slot 0, whose real row is the first)
+        slots = tri_rows[:, 9:120:10]
+        valid = slots >= 0
+        row_ids = torch.arange(tri_rows.shape[0], device=dev)[:, None]
+        row_of_slot = torch.full((int(slots.max()) + 2,), 2 ** 62,
+                                 dtype=torch.int64, device=dev)
+        row_of_slot = row_of_slot.scatter_reduce(
+            0, slots[valid].to(torch.int64), row_ids.expand_as(slots)[valid],
+            "amin")
+        hit = alive & (bs >= 0)
+        hit_row = torch.where(hit, row_of_slot[torch.clamp_min(
+            bs, 0).to(torch.int64)], -1)
+    n_units = p_all * kids
+    budget = 1 << (26 if dev.type == "cuda" else 22)
+    tiles_per_chunk = max(1, budget // (TILE * n_units))
+    lanes = torch.arange(p_all, device=dev)
+    child = torch.arange(kids, device=dev)
+    scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
+    for a in range(0, n_tiles, tiles_per_chunk):
+        b = min(a + tiles_per_chunk, n_tiles)
+        ent = entries[a:b, :p_all].to(torch.int64)
+        live_e = lanes[None, :] < counts[a:b, None]
+        eid = torch.where(live_e, ent & 0xFFFF, 0)
+        deq = (ent >> 16).to(torch.float32) * scale_t
+        if sc_meta is not None:
+            mv = sc_meta[eid].to(torch.int64)
+            first = mv & 0xFFFF
+            live_u = live_e[..., None] & (child < (mv >> 16)[..., None])
+            cl = torch.where(live_u, first[..., None] + child, 0)
+            xcl = first[..., None].expand_as(cl)
+            deq = deq[..., None].expand_as(cl)
+            live_u, cl, xcl, deq = (x.reshape(b - a, n_units)
+                                    for x in (live_u, cl, xcl, deq))
+        else:
+            live_u, cl, xcl = live_e, eid, eid
+        blk = (meta[cl] & 0xFFFFF) // ROWS_PER_CLUSTER if two_level else cl
+        ray0, ray1 = a * TILE, b * TILE
+        far = far_all[ray0:ray1].reshape(b - a, TILE, 1)
+        o = org[ray0:ray1].reshape(b - a, TILE, 1, 3)
+        d = dirn[ray0:ray1].reshape(b - a, TILE, 1, 3)
+        iv = inv_d[ray0:ray1].reshape(b - a, TILE, 1, 3)
+        if two_level:
+            o, d = _to_object(o, d, inv_xform[xcl][:, None])
+            iv = _safe_inv(d)
+        # (tile, ray, unit): the units the walk reaches
+        cand = live_u[:, None, :] & (deq[:, None, :] <= far) & (far >= 0.0)
+        enter = cand & _box_exact(o, iv, b_lo[blk][:, None],
+                                  b_hi[blk][:, None], far)
+        if not any_hit:
+            hr = hit_row[ray0:ray1].reshape(b - a, TILE, 1)
+            own = blk[:, None, :] == torch.div(hr, ROWS_PER_CLUSTER,
+                                               rounding_mode="floor")
+            if two_level:
+                inst = (meta[cl] >> 20).to(torch.float32)
+                own = own & (inst[:, None, :]
+                             == bi[ray0:ray1].reshape(b - a, TILE, 1))
+            enter = enter | (cand & own & (hr >= 0))
+        ti, ri, ui = torch.nonzero(enter, as_tuple=True)
+        ray = ray0 + ti * TILE + ri
+        if two_level:
+            po, pd = _to_object(org[ray], dirn[ray], inv_xform[xcl[ti, ui]])
+            piv = _safe_inv(pd)
+        else:
+            po, pd, piv = org[ray], dirn[ray], inv_d[ray]
+        rb = row_box[blk[ti, ui]]  # (M, 8, 6)
+        rpass = _box_exact(po[:, None], piv[:, None], rb[..., 0:3],
+                           rb[..., 3:6], far_all[ray][:, None])
+        if not any_hit:
+            own_row = (blk[ti, ui] * ROWS_PER_CLUSTER)[:, None] \
+                + torch.arange(ROWS_PER_CLUSTER, device=dev)[None, :]
+            rpass = rpass | (own[ti, ri, ui][:, None]
+                             & (own_row == hit_row[ray][:, None]))
+        unit_key = ui[:, None] * ROWS_PER_CLUSTER \
+            + torch.arange(ROWS_PER_CLUSTER, device=dev)[None, :]
+        if any_hit:
+            # the first occluding row of each ray ends its walk
+            mi, rr = torch.nonzero(rpass, as_tuple=True)
+            occ = _row_tests(blocks[blk[ti[mi], ui[mi]], rr], po[mi], pd[mi],
+                             tmax[ray[mi]], True).any(dim=1)
+            stop = torch.full(((b - a) * TILE,), 2 ** 62, dtype=torch.int64,
+                              device=dev)
+            stop = stop.scatter_reduce(0, (ray - ray0)[mi[occ]],
+                                       unit_key[mi[occ], rr[occ]], "amin")
+            stop_r = stop.reshape(b - a, TILE, 1)
+            u_idx = torch.arange(n_units, device=dev)[None, None, :]
+            cand = cand & (u_idx * ROWS_PER_CLUSTER <= stop_r)
+            rpass = rpass & (unit_key <= stop[ray - ray0][:, None])
+        boxes[ray0:ray1] = cand.sum(dim=2).reshape(-1)
+        rows_n.index_add_(0, ray, rpass.sum(dim=1))
+    return boxes, rows_n
+
+
 def _variant(pair_meta, sc_meta, scale: float, seg: bool = False) -> str:
     """Launch-count name of a K1 mode: scale 0 is the all-pairs row (its
     entries carry no distance), sc_meta the supercluster entries, seg the
@@ -653,6 +804,9 @@ def _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts, off,
         _check("counts", counts, i32, (n_tiles,), dev)
     if sc_meta is not None:
         _check("sc_meta", sc_meta, i32, (sc_meta.shape[0],), dev)
+    if tri_rows.data_ptr() % 16:
+        raise ValueError("tri_rows must be 16-byte aligned (its clusters "
+                         "are fetched by bulk copies)")
     two_level = pair_meta is not None
     out = torch.empty((5 if two_level else 4, org.shape[0]),
                       dtype=torch.float32, device=dev)
@@ -716,6 +870,21 @@ def _segments_to_rows(off, pair_cl):
     return rows.to(torch.int32), counts
 
 
+def _rows_to_segments(entry, counts, cap=None):
+    """Entry rows → pair segments: (off (T + 1,) i32, pair_cl), the first
+    counts[t] entries of every row laid end to end in tile order; cut at
+    ``cap`` pairs when given (``off`` clamped with it, so the trailing
+    tiles lose theirs)."""
+    live = (torch.arange(entry.shape[1], device=entry.device)[None, :]
+            < counts[:, None])
+    pair_cl = entry[live]
+    off = torch.cat([torch.zeros(1, dtype=torch.int64, device=entry.device),
+                     torch.cumsum(counts, 0, dtype=torch.int64)])
+    if cap is not None:
+        pair_cl, off = pair_cl[:cap], torch.clamp_max(off, cap)
+    return off.to(torch.int32), pair_cl.contiguous()
+
+
 def tileloop_seg_plain(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
                        scale: float, any_hit: bool, pair_meta=None,
                        inv_xform=None):
@@ -766,8 +935,17 @@ def tilegrid_plain(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
     reads. ``all_pairs`` only names the launch. Returns (bt, bu, bv,
     bs[, bi]) per ray."""
     del any_hit, all_pairs
-    n_tiles = org.shape[0] // TILE
-    dev = org.device
+    entries, counts = grid_rows(packed, org.shape[0] // TILE)
+    return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                          0.0, False, pair_meta=pair_meta,
+                          inv_xform=inv_xform)
+
+
+def grid_rows(packed, n_tiles: int):
+    """K4's pair list → entry rows: each tile's real pairs (cluster ids,
+    no distance bits) in list order, padded with INT32_MAX, and the (T,)
+    counts."""
+    dev = packed.device
     pk = packed.to(torch.int64)
     cl = (pk & 0xFFFF) - 1
     real = cl >= 0
@@ -779,9 +957,7 @@ def tilegrid_plain(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
     entries = torch.full((n_tiles, p_max), INT32_MAX, dtype=torch.int32,
                          device=dev)
     entries[tiles, rank] = cl.to(torch.int32)
-    return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
-                          0.0, False, pair_meta=pair_meta,
-                          inv_xform=inv_xform)
+    return entries, counts
 
 
 def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
@@ -947,12 +1123,7 @@ def _segment_lists(org, dirn, inv_d, tmv, lo, hi, scale, *, exact,
     total = counts.sum(dtype=torch.int64)
     overflow = overflow | (total > pcap)
     entry = torch.sort(_pack_entries(mask, tn, scale), dim=1).values
-    live = (torch.arange(entry.shape[1], device=org.device)[None, :]
-            < counts[:, None])
-    pair_cl = entry[live][:pcap].contiguous()
-    off = torch.cat([torch.zeros(1, dtype=torch.int64, device=org.device),
-                     torch.cumsum(counts, 0, dtype=torch.int64)])
-    off = torch.clamp_max(off, pcap).to(torch.int32)
+    off, pair_cl = _rows_to_segments(entry, counts, cap=pcap)
     return off, pair_cl, total.to(torch.float32), overflow
 
 

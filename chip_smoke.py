@@ -14,12 +14,17 @@ Phases, in order; any failure exits nonzero and prints no result:
                 it and hold the result against its plain PyTorch version
                 on the same inputs: the entry build (K2) and the exact
                 mask (K3, both outputs) bit-equal; the tile loop (K1, each
-                mode) and the grid over pairs (K4) with the slot equal on
-                ≥ 99.99% of live rays, bt within 1e-6 relative and the
-                instance equal on those (K4 any-hit: the occlusion flag
-                equal); the pair test (K6) bit-equal on all four outputs;
-                the packet walk (K5) bit-equal on all four outputs and its
-                group counters over a 65,536-ray slice. Waves: the first
+                mode) and the grid over pairs (K4) against the plain
+                version's exact walk (exact_boxes=True: unpadded boxes
+                far-limited by the running best t, as the kernels prune)
+                with the slot equal on ≥ 99.99% of live rays, bt within
+                1e-6 relative and the instance equal on those (K4 any-hit:
+                no occlusion flag different), logging how many slots the
+                padded plain walk would differ in; the pair test (K6)
+                bit-equal on all four outputs; the packet walk (K5)
+                bit-equal on all four outputs and its group counters over
+                a 65,536-ray slice; K4's and K5's registers and share of
+                their bound logged. Waves: the first
                 bounce and shadow waves of a bunny 800×600 × 8 spp batch
                 (K2, K3, K1 flat; K1's pair segments over the bunny config's
                 256-tile chunks, TPURT_ENTRY_ROWS=0; K4 over its chunks at
@@ -33,11 +38,15 @@ Phases, in order; any failure exits nonzero and prints no result:
                 over the 2430 instance-cluster boxes, K1 two-level); the
                 primary and first shadow waves of a cornell 512×512 ×
                 16 spp batch (K1 all-pairs, K4 all-pairs). K1 is also held
-                to tileloop_plain on edge-case lists cut from those waves
+                to the exact walk on edge-case lists cut from those waves
                 (a tile of 0 entries, 1 entry, an odd count, a full row,
                 and a far break right after a fetch ahead), flat and as
                 pair segments (bunny), two-level with per-cluster and
-                supercluster entries (sponza), closest and lean. Both sides
+                supercluster entries (sponza), closest and lean; K4 on
+                edge-case pair lists cut from the bunny's (0 pairs, 1, an
+                odd count, the longest list, and slices that vote
+                themselves done right after a fetch ahead), closest and
+                any-hit. Both sides
                 are timed with CUDA events, and each kernel's bound (the
                 least time the card could take for the same work) is
                 computed from the wave's shapes and data: for K1 and K4
@@ -137,6 +146,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def timed_once(fn):
+    """``fn()`` and its milliseconds (CUDA events, one call): a plain
+    version's result is compared and its time reported from one run."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls (CUDA events)."""
     import torch
@@ -229,12 +246,11 @@ def check_k2(label, wave, lo, hi):
     org, _, inv_d, tmv = wave
     scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
     k2 = tw.entries_cuda(org, inv_d, tmv, lo, hi, scale)
-    p2 = tw.entries_plain(org, inv_d, tmv, lo, hi, scale)
+    p2, plain_ms = timed_once(lambda: tw.entries_plain(org, inv_d, tmv, lo,
+                                                       hi, scale))
     torch.cuda.synchronize()
     bad = int((k2 != p2).sum())
     ms = cuda_ms(lambda: tw.entries_cuda(org, inv_d, tmv, lo, hi, scale), 10)
-    plain_ms = cuda_ms(lambda: tw.entries_plain(org, inv_d, tmv, lo, hi,
-                                                scale), 1)
     counts = (k2 != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
     log(f"[kernels] K2 {label}: slab {tuple(k2.shape)} over {lo.shape[0]} "
         f"boxes, {int(counts.sum())} entries, {bad} words differ from the "
@@ -256,12 +272,11 @@ def check_k3(label, wave, lo, hi):
 
     org, _, inv_d, tmv = wave
     mask, tn = tw.exact_mask_cuda(org, inv_d, tmv, lo, hi)
-    p_mask, p_tn = tw.exact_mask_plain(org, inv_d, tmv, lo, hi)
+    (p_mask, p_tn), plain_ms = timed_once(
+        lambda: tw.exact_mask_plain(org, inv_d, tmv, lo, hi))
     torch.cuda.synchronize()
     bad = int((mask != p_mask).sum()) + int((tn != p_tn).sum())
     ms = cuda_ms(lambda: tw.exact_mask_cuda(org, inv_d, tmv, lo, hi), 10)
-    plain_ms = cuda_ms(lambda: tw.exact_mask_plain(org, inv_d, tmv, lo, hi),
-                       1)
     log(f"[kernels] K3 {label}: mask {tuple(mask.shape)}, {int(mask.sum())} "
         f"hits, {bad} values differ from the plain version (mask and "
         f"tn_min); {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -290,12 +305,11 @@ def check_k6(label, raw, accel, pairs_per_ray=8):
         n_clusters=accel.cluster_lo.shape[0], pair_cap=cap)
     args = (pr, pc, cmin, org, dirn, tmv, accel.tri_rows)
     k = pw.pair_test_cuda(*args)
-    p = pw.pair_test_plain(*args)
+    p, plain_ms = timed_once(lambda: pw.pair_test_plain(*args))
     torch.cuda.synchronize()
     bad = sum(int((a != b).sum()) for a, b in zip(k, p))
     err = max(float((a - b).abs().max()) for a, b in zip(k, p))
     ms = cuda_ms(lambda: pw.pair_test_cuda(*args), 10)
-    plain_ms = cuda_ms(lambda: pw.pair_test_plain(*args), 1)
     slots, live = pr.shape[0], int((pr >= 0).sum())
     n_alive = int((tmv >= 0).sum())
     log(f"[kernels] K6 {label}: {n} rays ({n_alive} alive), {slots} slots "
@@ -312,10 +326,24 @@ def check_k6(label, raw, accel, pairs_per_ray=8):
                         + rows_bytes + slots * 16, live * 96 * MT_OPS))
 
 
-def hold_to_k1_bars(kernel, label, k, p, tmv, n_entries):
-    """A tile kernel's outputs against its plain version's, held to K1's
-    bars: slot equal on ≥ 99.99% of live rays, bt within 1e-6 relative and
-    the instance equal where the slot is. Returns (max abs err of bt/bu/bv
+def padded_note(p, padded, tmv, any_hit=False) -> str:
+    """How far the padded plain walk (boxes 1e-5 wider, the order-free
+    fold) is from the exact one the kernels are held to: the live rays
+    whose slot (any-hit: occlusion flag) differs."""
+    live = tmv >= 0.0
+    if any_hit:
+        n = int((live & ((p[3] >= 0) != (padded[3] >= 0))).sum())
+        return f"{n} occlusion flags differ between the exact and padded walks"
+    n = int((live & (p[3] != padded[3])).sum())
+    return f"{n} slots differ between the exact and padded plain walks"
+
+
+def hold_to_k1_bars(kernel, label, k, p, tmv, n_entries, padded=None):
+    """A tile kernel's outputs against its plain version's (the exact
+    walk, ``exact_boxes=True``), held to K1's bars: slot equal on ≥ 99.99%
+    of live rays, bt within 1e-6 relative and the instance equal where the
+    slot is. ``padded``: the padded plain walk's outputs, whose distance
+    from the exact walk's is logged. Returns (max abs err of bt/bu/bv
     where the slot is equal, slot mismatches)."""
     import torch
 
@@ -335,7 +363,8 @@ def hold_to_k1_bars(kernel, label, k, p, tmv, n_entries):
     log(f"[kernels] {kernel} {label}: {n_live} live rays ({n_hit} hit), "
         f"{n_live - int(same.sum())} slot mismatches (agree {agree:.6f}), "
         f"bt max rel err {max_rel:.3e}, max abs err (bt/bu/bv) "
-        f"{max_abs:.3e}, {bi_bad} instance mismatches, {n_entries} entries")
+        f"{max_abs:.3e}, {bi_bad} instance mismatches, {n_entries} entries"
+        + ("" if padded is None else "; " + padded_note(p, padded, tmv)))
     if agree < K1_SLOT_AGREE or max_rel > K1_T_RTOL or bi_bad or not n_hit:
         raise AssertionError(f"{kernel} {label} disagrees with its plain "
                              "version")
@@ -384,7 +413,8 @@ def tile_bound(n, n_out, rows, tl, list_bytes, work) -> dict:
 
 
 def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
-    """K1 against tileloop_plain on one wave, same entries and tables."""
+    """K1 against tileloop_plain's exact walk on one wave, same entries
+    and tables."""
     import torch
 
     from tpurt_torch.kernels import tilewave as tw
@@ -392,12 +422,13 @@ def check_k1(label, wave, rows, entry, counts, scale, any_hit, **tl):
     org, dirn, inv_d, tmv = wave
     args = (org, dirn, inv_d, tmv, rows, entry, counts, scale, any_hit)
     k = tw.tileloop_cuda(*args, **tl)
-    p = tw.tileloop_plain(*args, **tl)
+    p, plain_ms = timed_once(lambda: tw.tileloop_plain(
+        *args, exact_boxes=True, **tl))
+    padded = tw.tileloop_plain(*args, **tl)
     torch.cuda.synchronize()
     n_entries = int(counts.sum())
-    max_abs, bad = hold_to_k1_bars("K1", label, k, p, tmv, n_entries)
+    max_abs, bad = hold_to_k1_bars("K1", label, k, p, tmv, n_entries, padded)
     ms = cuda_ms(lambda: tw.tileloop_cuda(*args, **tl), 10)
-    plain_ms = cuda_ms(lambda: tw.tileloop_plain(*args, **tl), 1)
     work = walk_work(f"K1 {label}", wave, rows, entry, counts, scale,
                      any_hit, p, tl)
     rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
@@ -479,8 +510,9 @@ def edge_case(wave, entry, counts, scale, sc=False):
 
 def check_k1_edges(label, wave, rows, entry, counts, scale, any_hit,
                    seg=False, **tl):
-    """K1 against tileloop_plain on the edge-case lists of ``edge_case``
-    (as pair segments with ``seg``), held to K1's bars; the tile with no
+    """K1 against tileloop_plain's exact walk on the edge-case lists of
+    ``edge_case`` (as pair segments with ``seg``), held to K1's bars; the
+    tile with no
     entries must return every ray's starting values, and every ray of the
     last tile must end below the distance of the entry its break is cut
     at."""
@@ -493,17 +525,19 @@ def check_k1_edges(label, wave, rows, entry, counts, scale, any_hit,
     if seg:
         args = (*rays, rows, *tw._rows_to_segments(ent, cnt), scale, any_hit)
         k = tw.tileloop_seg_cuda(*args)
-        p = tw.tileloop_seg_plain(*args)
+        p = tw.tileloop_seg_plain(*args, exact_boxes=True)
+        padded = tw.tileloop_seg_plain(*args)
     else:
         args = (*rays, rows, ent, cnt, scale, any_hit)
         k = tw.tileloop_cuda(*args, **tl)
-        p = tw.tileloop_plain(*args, **tl)
+        p = tw.tileloop_plain(*args, exact_boxes=True, **tl)
+        padded = tw.tileloop_plain(*args, **tl)
     torch.cuda.synchronize()
     kind = "any-hit" if any_hit else "closest"
     hold_to_k1_bars("K1 edges", f"{label} {kind}{' segments' if seg else ''}"
                     f" (counts {cnt.tolist()}, cp {ent.shape[1]}, the last "
                     f"tile breaks at entry {b})", k, p, rays[3],
-                    int(cnt.sum()))
+                    int(cnt.sum()), padded)
     if not bool((p[0][4 * tw.TILE:] < (ent[4, b] >> 16).float() * scale)
                 .all()):
         raise AssertionError(f"K1 edges {label}: a ray of the last tile "
@@ -519,10 +553,10 @@ def check_k1_edges(label, wave, rows, entry, counts, scale, any_hit,
 
 
 def check_seg(label, wave, accel, any_hit, pcap):
-    """K1's pair-segment mode against tileloop_seg_plain on one sorted
-    wave, with the lists of the main path: K3 per 256-tile launch chunk
-    at capacity ``pcap`` (no clamp), the chunks' lists end to end, one
-    launch."""
+    """K1's pair-segment mode against tileloop_seg_plain's exact walk on
+    one sorted wave, with the lists of the main path: K3 per 256-tile
+    launch chunk at capacity ``pcap`` (no clamp), the chunks' lists end
+    to end, one launch."""
     import torch
 
     from tpurt_torch.kernels import tilewave as tw
@@ -534,18 +568,19 @@ def check_seg(label, wave, accel, any_hit, pcap):
         pairs_per_tile=0, pcap=pcap)
     args = (*wave, rows, off, pair_cl, scale, any_hit)
     k = tw.tileloop_seg_cuda(*args)
-    p = tw.tileloop_seg_plain(*args)
+    p, plain_ms = timed_once(lambda: tw.tileloop_seg_plain(
+        *args, exact_boxes=True))
+    padded = tw.tileloop_seg_plain(*args)
     torch.cuda.synchronize()
     n_chunks = -(-(off.shape[0] - 1) // tw.TILES_PER_LAUNCH)
     kind = "any-hit" if any_hit else "closest"
     max_abs, bad = hold_to_k1_bars(
         "K1-seg", f"{kind} ({label}, {n_chunks} chunks of "
         f"{tw.TILES_PER_LAUNCH} tiles at pcap {pcap}, overflow {bool(over)})",
-        k, p, wave[3], int(n_pairs))
+        k, p, wave[3], int(n_pairs), padded)
     if bool(over):
         raise AssertionError(f"K1-seg {label}: the pair list overflowed")
     ms = cuda_ms(lambda: tw.tileloop_seg_cuda(*args), 10)
-    plain_ms = cuda_ms(lambda: tw.tileloop_seg_plain(*args), 1)
     entry, counts = tw._segments_to_rows(off, pair_cl)
     work = walk_work(f"K1-seg {label}", wave, rows, entry, counts, scale,
                      any_hit, p, {})
@@ -585,9 +620,11 @@ def grid_list(label, wave, accel, avg, all_pairs=False):
     return launches[0][2], chunk, avg, over
 
 
-def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
-    """K4 against tilegrid_plain on one wave, with the lists of the main
-    path (``grid_list``)."""
+def check_grid(label, wave, accel, any_hit, avg, all_pairs=False,
+               edges=False, **tl):
+    """K4 against tilegrid_plain's exact walk on one wave, with the lists
+    of the main path (``grid_list``); with ``edges`` also on the edge-case
+    lists cut from that list (``check_k4_edges``)."""
     import torch
 
     from tpurt_torch.kernels import tilewave as tw
@@ -600,27 +637,23 @@ def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
     args = (org, dirn, inv_d, tmv, rows, packed, any_hit)
     kw = dict(all_pairs=all_pairs, **tl)
     k = tw.tilegrid_cuda(*args, **kw)
-    p = tw.tilegrid_plain(*args, **kw)
+    p, plain_ms = timed_once(lambda: tw.tilegrid_plain(
+        *args, exact_boxes=True, **kw))
+    padded = tw.tilegrid_plain(*args, **kw)
     torch.cuda.synchronize()
     kind = "any-hit" if any_hit else "closest"
     detail = (f"{kind} ({label}, {-(-n_tiles // chunk)} chunks of {chunk} "
               f"tiles at {avg} pairs a tile, {packed.numel()} slots)")
     if any_hit:
-        # an any-hit caller reads the occlusion flag only; the early-out
-        # leaves the other fields where the tile stopped
-        bad = int(((k[3] >= 0) != (p[3] >= 0)).sum())
-        max_abs = 0.0
-        log(f"[kernels] K4 {detail}: {bad} occlusion flags differ from the "
-            f"plain version, {int((p[3] >= 0).sum())} occluded, {n_pairs} "
-            "real pairs")
-        if bad:
-            raise AssertionError(f"K4 {label} disagrees with tilegrid_plain")
+        bad, max_abs = hold_flags("K4", detail, k, p, tmv, n_pairs, padded)
     else:
-        max_abs, bad = hold_to_k1_bars("K4", detail, k, p, tmv, n_pairs)
+        max_abs, bad = hold_to_k1_bars("K4", detail, k, p, tmv, n_pairs,
+                                       padded)
     if bool(over):
         raise AssertionError(f"K4 {label}: the pair list overflowed")
+    if edges:
+        check_k4_edges(label, wave, rows, packed, any_hit, **tl)
     ms = cuda_ms(lambda: tw.tilegrid_cuda(*args, **kw), 10)
-    plain_ms = cuda_ms(lambda: tw.tilegrid_plain(*args, **kw), 1)
     # beside the bound: the time if every pair tested all 96 triangles of
     # its cluster against all 1024 rays (no box culling)
     all_tests_ms = n_pairs * 1024 * (96 * MT_OPS + 9 * SLAB_OPS) \
@@ -634,10 +667,186 @@ def check_grid(label, wave, accel, any_hit, avg, all_pairs=False, **tl):
                mismatches=bad,
                **tile_bound(org.shape[0], len(k), rows, tl,
                             packed.numel() * 4, work))
+    # tileloop_kernel<hit, two-level, sc, src>: hit 2 K4's any-hit, 0
+    # closest; src 2 the pair list (csrc/tileloop.cu's Hit and Src)
+    regs = kernel_registers("tileloop_kernel", f"{2 if any_hit else 0},"
+                            f"{int(tl.get('pair_meta') is not None)},0,2")
+    rec["registers"] = regs
     log(f"[kernels] K4 {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); every triangle of "
-        f"every pair at the f32 rate {all_tests_ms:.3f} ms")
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+        f"{rec['bound_ms'] / ms:.1%} of the bound; every triangle of "
+        f"every pair at the f32 rate {all_tests_ms:.3f} ms; registers "
+        f"{regs}")
     return rec
+
+
+def grid_edge_case(wave, rows, packed, any_hit, **tl):
+    """Five tiles of a wave's K4 pair list at the edges of K1's ring, as
+    one pair list (a sentinel a tile, fill slots after the last): 0 pairs,
+    1, an odd count, the longest list of the wave, and a list of more
+    than two ring groups (tileloop.cu's kGroup pairs a stage) whose rays
+    stop walking after the first group: any-hit keeps only the rays that
+    the first group occludes (the others dead), so every slice votes
+    itself done at the second group, whose rows were fetched while the
+    first was tested; closest kills the rays of every other slice, which
+    vote themselves done before the first group. Returns ((org, dirn,
+    inv_d, tmax), packed, counts (5,))."""
+    import torch
+
+    from tpurt_torch.kernels import cuda_build
+    from tpurt_torch.kernels import tilewave as tw
+
+    group = cuda_build.constant("kGroup")
+    slice_rays = 32 * cuda_build.constant("kSliceWarps")
+    n_tiles = wave[0].shape[0] // tw.TILE
+    entry, counts = tw.grid_rows(packed, n_tiles)
+    c = counts.cpu()
+    full = int(torch.argmax(c))
+    long_ = torch.nonzero(c > 2 * group)[:, 0]
+    long_ = long_[long_ != full]
+    many = torch.nonzero(c >= 3)[:, 0]
+    many = many[many != full]
+    if long_.numel() < 1 or many.numel() < 3:
+        raise AssertionError("the wave has too few long pair lists")
+    last = int(long_[long_.numel() // 2])
+    many = many[many != last]
+    pick = many[torch.linspace(0, many.numel() - 1, 2).long()].tolist()
+    n_odd = int(c[pick[1]]) - 1 + int(c[pick[1]]) % 2
+    src = [pick[0], pick[0], pick[1], full, last]
+    cnt = [0, 1, n_odd, int(c[full]), int(c[last])]
+    dev = packed.device
+    ray = (torch.tensor(src, device=dev)[:, None] * tw.TILE
+           + torch.arange(tw.TILE, device=dev)[None, :]).reshape(-1)
+    org, dirn, inv_d, tmv = (x[ray].contiguous() for x in wave)
+    words = []
+    for t, (s, n) in enumerate(zip(src, cnt)):
+        words.append(torch.tensor([t << 16], dtype=torch.int32, device=dev))
+        words.append((t << 16) + entry[s, :n] + 1)
+    words.append(torch.full((5,), 4 << 16, dtype=torch.int32, device=dev))
+    edge = torch.cat(words).contiguous()
+    tail = slice(4 * tw.TILE, 5 * tw.TILE)
+    if any_hit:
+        first = torch.cat([torch.tensor([0], dtype=torch.int32, device=dev),
+                           entry[last, :group] + 1])
+        one = [x[tail].contiguous() for x in (org, dirn, inv_d, tmv)]
+        occ = tw.tilegrid_plain(*one, rows, first, True, exact_boxes=True,
+                                **tl)[3] >= 0
+        if not bool(occ.any()):
+            raise AssertionError("no ray of the early-out tile is occluded "
+                                 "by its first group")
+        tmv[tail] = torch.where(occ, tmv[tail], -1.0)
+    else:
+        lane = torch.arange(tw.TILE, device=dev)
+        tmv[tail] = torch.where((lane // slice_rays) % 2 == 1, -1.0,
+                                tmv[tail])
+    return ((org, dirn, inv_d, tmv), edge,
+            torch.tensor(cnt, dtype=torch.int32, device=dev))
+
+
+def check_k4_edges(label, wave, rows, packed, any_hit, **tl):
+    """K4 against tilegrid_plain's exact walk on ``grid_edge_case``'s
+    lists: closest held to K1's bars, any-hit with no occlusion flag
+    different; the tile without pairs keeps its rays' start values, and
+    every live ray of the early-out tile ends occluded (any-hit)."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    rays, edge, cnt = grid_edge_case(wave, rows, packed, any_hit, **tl)
+    args = (*rays, rows, edge, any_hit)
+    k = tw.tilegrid_cuda(*args, **tl)
+    p = tw.tilegrid_plain(*args, exact_boxes=True, **tl)
+    padded = tw.tilegrid_plain(*args, **tl)
+    torch.cuda.synchronize()
+    detail = (f"{label} {'any-hit' if any_hit else 'closest'} (pairs "
+              f"{cnt.tolist()}, {edge.numel()} slots)")
+    if any_hit:
+        hold_flags("K4 edges", detail, k, p, rays[3], int(cnt.sum()), padded)
+        tail = slice(4 * tw.TILE, 5 * tw.TILE)
+        live = rays[3][tail] >= 0
+        if not bool((k[3][tail][live] >= 0).all()):
+            raise AssertionError(f"K4 edges {label}: a live ray of the "
+                                 "early-out tile ends unoccluded")
+    else:
+        hold_to_k1_bars("K4 edges", detail, k, p, rays[3], int(cnt.sum()),
+                        padded)
+    first = slice(0, tw.TILE)
+    tm0 = rays[3][first]
+    start = torch.where(tm0 >= 0, tm0, -1.0)
+    if not (torch.equal(k[0][first], start) and bool((k[3][first] == -1).all())
+            and bool((k[1][first] == 0).all())):
+        raise AssertionError(f"K4 edges {label}: the empty tile's rays "
+                             "changed")
+
+
+def hold_flags(kernel, detail, k, p, tmv, n_pairs, padded=None):
+    """An any-hit result of K4 against its plain version's: an any-hit
+    caller reads the occlusion flag only (a ray stops at its first hit, so
+    the other fields hold that hit); zero flags may differ. Returns
+    (differing flags, 0.0)."""
+    bad = int(((k[3] >= 0) != (p[3] >= 0)).sum())
+    log(f"[kernels] {kernel} {detail}: {bad} occlusion flags differ from "
+        f"the plain version, {int((p[3] >= 0).sum())} occluded, {n_pairs} "
+        "real pairs" + ("" if padded is None else
+                        "; " + padded_note(p, padded, tmv, True)))
+    if bad:
+        raise AssertionError(f"{kernel} {detail} disagrees with "
+                             "tilegrid_plain")
+    return bad, 0.0
+
+
+def registers(text: str) -> dict:
+    """Registers and spill bytes of each kernel variant in a ptxas -v log,
+    by name (the template arguments in order, bools as 0/1)."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:L[bi]\d+E)+)E",
+                          m.group(1))
+            name = (k.group(1) + "<" + ",".join(
+                re.findall(r"L[bi](\d+)E", k.group(2))) + ">" if k else None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_registers(kernel: str, args: str):
+    """Registers and spills of one variant from the process's kernel build
+    (None where the library was loaded without building)."""
+    from tpurt_torch.kernels import cuda_build
+
+    return registers(cuda_build.load().log).get(f"{kernel}<{args}>")
+
+
+def packet_wave(raw):
+    """A wave as the packet intersector hands it to K5 (no sort): tmax
+    finite, padded with dead rays to whole 2048-ray groups. Returns (org,
+    dirn, tmax)."""
+    import torch
+
+    from tpurt_torch.kernels import packet as pk
+
+    org, dirn, tmax = raw
+    tmv = torch.where(torch.isfinite(tmax), tmax, pk.BIG)
+    pad = (-org.shape[0]) % pk.PACKET
+    if pad:
+        dev = org.device
+        org = torch.cat([org, torch.zeros((pad, 3), device=dev)])
+        dirn = torch.cat([dirn, torch.ones((pad, 3), device=dev)])
+        tmv = torch.cat([tmv, torch.full((pad,), -1.0, device=dev)])
+    return tuple(x.contiguous() for x in (org, dirn, tmv))
 
 
 def check_k5(label, raw, tables, any_hit, n_plain=65536):
@@ -649,30 +858,20 @@ def check_k5(label, raw, tables, any_hit, n_plain=65536):
 
     from tpurt_torch.kernels import packet as pk
 
-    org, dirn, tmax = raw
-    tmv = torch.where(torch.isfinite(tmax), tmax, pk.BIG)
-    n = org.shape[0]
-    pad = (-n) % pk.PACKET
-    if pad:
-        dev = org.device
-        org = torch.cat([org, torch.zeros((pad, 3), device=dev)])
-        dirn = torch.cat([dirn, torch.ones((pad, 3), device=dev)])
-        tmv = torch.cat([tmv, torch.full((pad,), -1.0, device=dev)])
-    org, dirn, tmv = (x.contiguous() for x in (org, dirn, tmv))
+    org, dirn, tmv = packet_wave(raw)
     n = org.shape[0]
     s0 = (n // 2) // pk.PACKET * pk.PACKET
     s1 = min(n, s0 + n_plain)
     sl = slice(s0, s1)
     k = pk.packet_cuda(tables, org, dirn, tmv, any_hit)
-    p = pk.packet_plain(tables, org[sl], dirn[sl], tmv[sl], any_hit)
+    p, plain_ms = timed_once(lambda: pk.packet_plain(
+        tables, org[sl], dirn[sl], tmv[sl], any_hit))
     torch.cuda.synchronize()
     gs = slice(s0 // pk.PACKET, s1 // pk.PACKET)
     bad = sum(int((a[sl] != b).sum()) for a, b in zip(k[:4], p[:4]))
     bad += int((k[4][gs] != p[4]).sum())
     err = max(float((a[sl] - b).abs().max()) for a, b in zip(k[:4], p[:4]))
     ms = cuda_ms(lambda: pk.packet_cuda(tables, org, dirn, tmv, any_hit), 10)
-    plain_ms = cuda_ms(lambda: pk.packet_plain(tables, org[sl], dirn[sl],
-                                               tmv[sl], any_hit), 1)
     steps, leaf_rows = (float(x) for x in k[4].sum(dim=0))
     n_alive = int((tmv >= 0).sum())
     n_hit = int((k[3] >= 0).sum())
@@ -686,12 +885,18 @@ def check_k5(label, raw, tables, any_hit, n_plain=65536):
     if bad or not n_hit:
         raise AssertionError(f"K5 {label} is not bit-equal to packet_plain")
     n_nodes = tables[0].shape[0]
-    return dict(ms=ms, plain_ms=plain_ms, plain_rays=s1 - s0,
-                max_abs_err=err, mismatches=bad, node_steps=steps,
-                leaf_rows=leaf_rows,
-                **bound(n * 28 + n_nodes * 36 + tables[9].numel() * 4
-                        + n * 16 + k[4].shape[0] * 8,
-                        steps * SLAB_OPS + leaf_rows * 12 * MT_OPS))
+    rec = dict(ms=ms, plain_ms=plain_ms, plain_rays=s1 - s0,
+               max_abs_err=err, mismatches=bad, node_steps=steps,
+               leaf_rows=leaf_rows,
+               registers=kernel_registers("packet_kernel",
+                                          str(int(any_hit))),
+               **bound(n * 28 + n_nodes * 32 + tables[9].numel() * 4
+                       + n * 16 + k[4].shape[0] * 8,
+                       steps * SLAB_OPS + leaf_rows * 12 * MT_OPS))
+    log(f"[kernels] K5 {label}: bound {rec['bound_ms']:.3f} ms "
+        f"({rec['bound_by']}), {rec['bound_ms'] / ms:.1%} of the bound; "
+        f"registers {rec['registers']}")
+    return rec
 
 
 def k1_record(name, closest, anyhit, source="tpurt_torch/csrc/tileloop.cu",
@@ -713,6 +918,7 @@ def check_kernels(device) -> list:
     import torch
 
     from tpurt_torch.bvh.cluster import build_packet_accel
+    from tpurt_torch.kernels import packet as pk
     from tpurt_torch.kernels import tilewave as tw
     from tpurt_torch.render.intersectors import scene_meta
     from tpurt_torch.scene.loader import load_scene
@@ -751,7 +957,7 @@ def check_kernels(device) -> list:
                            kind == "shadow", pcap)
            for kind in ("bounce", "shadow")}
     grid = {kind: check_grid(f"bunny {kind}", waves[kind], accel,
-                             kind == "shadow", avg)
+                             kind == "shadow", avg, edges=True)
             for kind, avg in (("bounce", cfg.pairs_avg_bounce),
                               ("shadow", cfg.pairs_avg_shadow))}
     del waves
@@ -763,7 +969,7 @@ def check_kernels(device) -> list:
     # the packet BVH of the same scene: K5 on the same waves
     scene = load_scene(cfg.scene)
     pacc = build_packet_accel(None, scene_meta(scene), scene=scene).to(device)
-    tables = tuple(pacc[:10])
+    tables = pk.packet_tables(pacc)
     log(f"[kernels] bunny packet BVH: {pacc.n_nodes} nodes, {pacc.n_rows} "
         f"rows of 12 triangles, "
         f"{int((pacc.node_count > 0).sum())} leaves")

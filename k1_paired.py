@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""The tile loop (K1) and the grid over pairs (K4) of this checkout
-against those of another checkout, on the waves chip_smoke.py holds them
-to, on one CUDA GPU.
+"""The tile loop (K1), the grid over pairs (K4) and the packet walk (K5)
+of this checkout against those of another checkout, on the waves
+chip_smoke.py holds them to, on one CUDA GPU.
 
     python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell]
-        [--variant TAG:kName=V,kName=V ...] [--reps 10] [--out FILE]
+        [--cases K4,K5] [--variant TAG:kName=V,kName=V ...] [--reps 10]
+        [--out FILE]
 
 DIR is a checkout of the commit to compare with (for example the parent,
 unpacked with ``git archive``). The kernels of both checkouts are built
 from their own ``tpurt_torch/csrc`` with the same nvcc flags, and each
 ``--variant`` builds a copy of this checkout's sources whose
-``constexpr int kName = ...;`` lines in csrc/tileloop.cu take the given
-values (the loop's shape: kSliceWarps, kScSliceWarps, kStages, kGroup,
-kRegCap, kTlRegCap, kTriLanes). For every case — K1 on the bunny's first
-bounce (closest) and shadow (lean any-hit) waves as entry rows and as
-pair segments, on chip_smoke's edge-case lists, on sponza's supercluster
-and per-cluster entries, on cornell's all-pairs rows, and K4 on the
-bunny's and cornell's grid lists — it checks every output of every other
-build bit-equal to this checkout's, then times each build by CUDA events
-(mean of ``--reps`` launches) in the order parent, tree, the variants,
-the variants reversed, tree, parent. The edge-case lists are cut for
-this checkout's ring (its kGroup). Prints each build's registers and
-spills (ptxas), the nvidia-smi name and power-limit line and a JSON
-object (also written to ``--out``); exits 1 if any output differs.
+``constexpr int kName = ...;`` lines take the given values, each name
+looked up in the one source that holds it: the loop's shape in
+csrc/tileloop.cu (kSliceWarps, kScSliceWarps, kStages, kGroup, kRegCap,
+kTlRegCap, kTriLanes) and the packet walk's in csrc/packet.cu (kBlock,
+kRowLanes, kShareCost). For every case — K1 on
+the bunny's first bounce (closest) and shadow (lean any-hit) waves as
+entry rows and as pair segments, on chip_smoke's edge-case lists, on
+sponza's supercluster and per-cluster entries, on cornell's all-pairs
+rows; K4 on the bunny's and cornell's grid lists and the bunny's K4
+edge-case lists; K5 on the bunny's primary, bounce and shadow waves
+through its packet BVH — whose name holds one of ``--cases`` (every case
+by default), it checks every output of every other build bit-equal to
+this checkout's (K5: its group counters too; K4 any-hit: the occlusion
+flags), then times each build by CUDA events (mean of ``--reps``
+launches) in the order parent, tree, the variants, the variants
+reversed, tree, parent. The edge-case lists are
+cut for this checkout's ring (its kGroup and kSliceWarps). This
+checkout's wrappers launch every build, so a case runs only where every
+build's C entry point of its kernel takes the same arguments as this
+checkout's; the others are skipped and logged (a parent from before K5's
+packed nodes: its K5 cases). Prints each build's
+registers and spills (ptxas), the nvidia-smi name and power-limit line
+and a JSON object (also written to ``--out``); exits 1 if any output
+differs.
 """
 
 from __future__ import annotations
@@ -43,8 +55,8 @@ BUILD = os.path.join(ROOT, "tpurt_torch", "build", "paired")
 
 
 def build(csrc: str, tag: str, consts: dict | None = None):
-    """The kernel library of the sources in ``csrc`` (with the tile
-    loop's named constants replaced by ``consts``), built into BUILD."""
+    """The kernel library of the sources in ``csrc`` (with the named
+    constants replaced by ``consts``), built into BUILD."""
     from tpurt_torch.kernels import cuda_build
 
     src_dir = os.path.join(BUILD, tag)
@@ -52,55 +64,57 @@ def build(csrc: str, tag: str, consts: dict | None = None):
     os.makedirs(src_dir)
     for name in cuda_build.SOURCES:
         shutil.copy(os.path.join(csrc, name), src_dir)
-    if consts:
-        path = os.path.join(src_dir, "tileloop.cu")
-        with open(path) as f:
-            text = f.read()
-        for name, value in consts.items():
+    for name, value in (consts or {}).items():
+        found = 0
+        for src in cuda_build.SOURCES:
+            path = os.path.join(src_dir, src)
+            with open(path) as f:
+                text = f.read()
             text, n = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {value};", text)
-            if n != 1:
-                raise ValueError(f"{tag}: no constant {name} in tileloop.cu")
-        with open(path, "w") as f:
-            f.write(text)
+            if n:
+                with open(path, "w") as f:
+                    f.write(text)
+            found += n
+        if found != 1:
+            raise ValueError(f"{tag}: {found} constants {name} in csrc")
     lib = cuda_build.build_library(src_dir,
                                    os.path.join(src_dir, f"lib_{tag}.so"))
     log(f"[build] {tag}: {lib.seconds:.2f} s")
     return lib
 
 
-def registers(text: str) -> dict:
-    """Registers and spill bytes of each tile-loop and grid kernel variant
-    in a ptxas -v log, by name (flags as 0/1 in template order)."""
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"(tileloop_kernel|tilegrid_kernel)I((?:Lb\dE)+)",
-                          m.group(1))
-            name = (k.group(1) + "<" + ",".join(re.findall(r"Lb(\d)E",
-                                                           k.group(2))) + ">"
-                    if k else None)
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
-                                            spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
+# The C entry point that each case's kernel launches through.
+ENTRY = {"K1": "tpurt_tileloop", "K4": "tpurt_tilegrid",
+         "K5": "tpurt_packet"}
+
+
+def interfaces(csrc: str) -> dict:
+    """The parameter list of every C entry point in the sources of
+    ``csrc``, whitespace squeezed, by name."""
+    from tpurt_torch.kernels import cuda_build
+
+    out = {}
+    for name in cuda_build.SOURCES:
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            out[m.group(1)] = " ".join(m.group(2).split())
     return out
 
 
 def scene_cases(scene: str, device):
-    """(case name, closure launching the kernel on the case's inputs) for
-    every case of ``scene``, built from the same waves as chip_smoke.py."""
+    """(case name, closure launching the kernel on the case's inputs[,
+    flags]) for every case of ``scene``, built from the same waves as
+    chip_smoke.py; ``flags``: only the occlusion flags (bs >= 0) are the
+    result (K4's any-hit stops a ray at its first hit)."""
     import torch
 
+    from tpurt_torch.bvh.cluster import build_packet_accel
+    from tpurt_torch.kernels import packet as pk
     from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.utils.config import get_config
 
     if scene == "cornell":
@@ -120,12 +134,12 @@ def scene_cases(scene: str, device):
             packed = chip_smoke.grid_list("cornell", wave, accel, n_c,
                                           all_pairs=True)[0]
             yield (f"K4 all-pairs cornell {kind}",
-                   lambda w=wave, pk=packed, a=any_hit:
-                   tw.tilegrid_cuda(*w, accel.tri_rows, pk, a,
-                                    all_pairs=True))
+                   lambda w=wave, pk_=packed, a=any_hit:
+                   tw.tilegrid_cuda(*w, accel.tri_rows, pk_, a,
+                                    all_pairs=True), any_hit)
         return
     spp = 8 if scene == "bunny" else 2
-    accel, waves, _ = chip_smoke.batch_waves(scene, device, spp, sort=True)
+    accel, waves, raw = chip_smoke.batch_waves(scene, device, spp, sort=True)
     rows = accel.tri_rows
     if scene == "bunny":
         modes = (("flat", accel.cluster_lo, accel.cluster_hi, {}),)
@@ -171,8 +185,25 @@ def scene_cases(scene: str, device):
             packed = chip_smoke.grid_list(f"bunny {kind}", wave, accel,
                                           avg)[0]
             yield (f"K4 {scene} {kind}",
-                   lambda w=wave, pk=packed, a=any_hit:
-                   tw.tilegrid_cuda(*w, rows, pk, a))
+                   lambda w=wave, pk_=packed, a=any_hit:
+                   tw.tilegrid_cuda(*w, rows, pk_, a), any_hit)
+            g_rays, g_list, _ = chip_smoke.grid_edge_case(wave, rows, packed,
+                                                          any_hit)
+            yield (f"K4 edges {scene} {kind}",
+                   lambda r=g_rays, pk_=g_list, a=any_hit:
+                   tw.tilegrid_cuda(*r, rows, pk_, a), any_hit)
+    if scene != "bunny":
+        return
+    del accel, waves
+    cfg_scene = load_scene(cfg.scene)
+    pacc = build_packet_accel(None, scene_meta(cfg_scene),
+                              scene=cfg_scene).to(device)
+    tables = pk.packet_tables(pacc)
+    for kind in ("primary", "bounce", "shadow"):
+        pw = chip_smoke.packet_wave(raw[kind])
+        yield (f"K5 {scene} {kind}",
+               lambda w=pw, a=kind == "shadow":
+               pk.packet_cuda(tables, *w, a))
 
 
 def main() -> int:
@@ -183,6 +214,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--scenes", default="bunny,sponza,cornell")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated parts of case names to run")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None)
@@ -206,33 +239,48 @@ def main() -> int:
         futures = {tag: pool.submit(build, csrc, tag, consts)
                    for tag, (csrc, consts) in jobs.items()}
         libs = {tag: f.result() for tag, f in futures.items()}
+    # this checkout's wrappers launch every build: a case runs only where
+    # the builds' entry points take the same arguments
+    ifs = {tag: interfaces(csrc) for tag, (csrc, _) in jobs.items()}
+    differs = {entry: [tag for tag in jobs
+                       if ifs[tag].get(entry) != ifs["tree"][entry]]
+               for entry in ENTRY.values()}
     report = {"card": smi, "builds": {}, "cases": {}}
     for tag, lib in libs.items():
-        regs = registers(lib.log)
+        regs = chip_smoke.registers(lib.log)
         report["builds"][tag] = dict(seconds=lib.seconds, kernels=regs)
         for name, r in sorted(regs.items()):
             log(f"[build] {tag} {name}: {r}")
     order = ["parent", "tree", *variants, *variants[::-1], "tree", "parent"]
-
-    def use(tag):
-        cuda_build.activate(libs[tag])
-
+    wanted = [c for c in args.cases.split(",") if c]
     bad = 0
     for scene in args.scenes.split(","):
-        for name, run in scene_cases(scene, device):
-            use("tree")
+        for name, run, *flags in scene_cases(scene, device):
+            if wanted and not any(c in name for c in wanted):
+                continue
+            entry = ENTRY[name.split()[0]]
+            if differs[entry]:
+                log(f"[paired] {name}: skipped, {entry} of "
+                    f"{', '.join(differs[entry])} takes other arguments")
+                report["cases"][name] = dict(skipped=differs[entry])
+                continue
+            cuda_build.activate(libs["tree"])
             ref = run()
             equal = {}
             for tag in libs:
                 if tag == "tree":
                     continue
-                use(tag)
+                cuda_build.activate(libs[tag])
                 out = run()
-                equal[tag] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                if flags and flags[0]:
+                    equal[tag] = torch.equal(out[3] >= 0, ref[3] >= 0)
+                else:
+                    equal[tag] = all(torch.equal(a, b)
+                                     for a, b in zip(out, ref))
                 bad += not equal[tag]
             ms = {tag: [] for tag in libs}
             for tag in order:
-                use(tag)
+                cuda_build.activate(libs[tag])
                 run()
                 ms[tag].append(cuda_ms(run, args.reps))
             report["cases"][name] = dict(ms=ms, bit_equal_to_tree=equal)
@@ -242,7 +290,7 @@ def main() -> int:
                 + ", ".join(f"{t} {e}" for t, e in equal.items()))
             del ref
         torch.cuda.empty_cache()
-    use("tree")
+    cuda_build.activate(libs["tree"])
     text = json.dumps(report)
     if args.out:
         with open(args.out, "w") as f:

@@ -7,14 +7,16 @@ port's dependencies are installed (a GPU machine without jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances (as chip_smoke.py): the entry build and the exact mask
-bit-equal; the pair test and the packet walk bit-equal (one thread per
-slot or ray, the plain version's op order, no contraction, IEEE
-division); the traversal loop (every mode) and the grid over pairs with
-the slot equal on ≥ 99.99% of live rays and bt within 1e-6 relative on
-those (the grid's any-hit: the occlusion flag equal); a render on the
-card within RMSE 1e-3 of the same render on the CPU (the plain versions,
-and torch's CPU and CUDA elementwise kernels round transcendentals
-differently).
+bit-equal; the pair test and the packet walk bit-equal (the plain
+version's op order, no contraction, IEEE division; the walk's group
+counters too); the traversal loop (every mode) against the plain
+version's exact walk (``exact_boxes=True``: unpadded boxes far-limited by
+the running best t, as the kernel prunes) with the slot equal on ≥
+99.99% of live rays and bt within 1e-6 relative on those; the grid over
+pairs bit-equal to that walk (any-hit: the occlusion flag equal); a
+render on the card within RMSE 1e-3 of the same render on the CPU (the
+plain versions, and torch's CPU and CUDA elementwise kernels round
+transcendentals differently).
 """
 
 import numpy as np
@@ -102,7 +104,7 @@ def test_tileloop_cuda_matches_plain(wave, any_hit):
     args = (w["org"], w["dirn"], w["inv_d"], w["tmax"], acc.tri_rows, entry,
             counts, w["scale"], any_hit)
     kt, ku, kv, ks = tw.tileloop_cuda(*args)
-    pt, pu, pv, ps = tw.tileloop_plain(*args)
+    pt, pu, pv, ps = tw.tileloop_plain(*args, exact_boxes=True)
     live = w["tmax"] >= 0
     same = live & (ks == ps)
     assert int(same.sum()) >= 0.9999 * int(live.sum())
@@ -194,7 +196,7 @@ def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
     tw.reset_launch_counts()
     k = tw.tileloop_cuda(*args, any_hit, **tl)
     assert tw.launch_counts()[f"tileloop_{mode}"] == 1
-    p = tw.tileloop_plain(*args, any_hit, **tl)
+    p = tw.tileloop_plain(*args, any_hit, exact_boxes=True, **tl)
     assert len(k) == len(p) == (4 if mode == "allpairs" else 5)
     live = args[3] >= 0
     same = live & (k[3] == p[3])
@@ -212,15 +214,16 @@ def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
 def test_tileloop_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
     """K1 on entry lists at the edges of its ring (chip_smoke.edge_case:
     none, one, an odd count, a full row, a far break at a group start
-    right after its rows were fetched ahead), flat, as pair segments,
-    two-level and with superclusters: held to the plain version's bars
-    by chip_smoke.check_k1_edges, which raises on a miss; the tile
-    without entries keeps its start values, and the last tile's rays all
-    end below the entry their break is cut at."""
+    right after its rows were fetched ahead), cut from 8-tile waves, flat,
+    as pair segments, two-level and with superclusters: held to the plain
+    version's exact walk and K1's bars by chip_smoke.check_k1_edges, which
+    raises on a miss; the tile without entries keeps its start values,
+    and the last tile's rays all end below the entry their break is cut
+    at."""
     import chip_smoke
 
     if mode in ("flat", "seg"):
-        w = _standin_wave(cuda_device, 5)
+        w = _standin_wave(cuda_device, 8)
         acc = w["accel"]
         entry = tw.entries_cuda(w["org"], w["inv_d"], w["tmax"],
                                 acc.cluster_lo, acc.cluster_hi, w["scale"])
@@ -230,7 +233,7 @@ def test_tileloop_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
                 entry, counts, w["scale"])
         tl = {}
     else:
-        args, tl = _k1_modes_case(mode, cuda_device, n_tiles=5)
+        args, tl = _k1_modes_case(mode, cuda_device, n_tiles=8)
     org, dirn, inv_d, tmax, rows, entry, counts, scale = args
     chip_smoke.check_k1_edges(mode, (org, dirn, inv_d, tmax), rows, entry,
                               counts, scale, any_hit, seg=mode == "seg", **tl)
@@ -326,9 +329,11 @@ def test_budget_and_pair_renders_on_cuda_match_cpu(cuda_device, over):
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_packet_cuda_matches_plain(cuda_device, any_hit):
-    """K5 against its plain version on the bunny stand-in's packet BVH:
-    all four outputs and the group counters bit-equal (one thread per
-    ray, the plain version's descent rule and op order)."""
+    """K5 against its plain version on the bunny stand-in's packet BVH
+    (its nodes packed by packet_tables): all four outputs and the group
+    counters bit-equal (each ray's own walk, the plain version's descent
+    rule and op order, the warp's shared row tests folding as the plain
+    version's first minimum)."""
     from tpurt_torch.bvh.cluster import build_packet_accel
     from tpurt_torch.kernels import packet as pk
 
@@ -346,7 +351,7 @@ def test_packet_cuda_matches_plain(cuda_device, any_hit):
     tmax = np.where(np.arange(n) % 7 == 0, -1.0,
                     rng.uniform(2.0, 6.0, n) if any_hit else 3.4e38)
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda_device)
-    args = (tuple(acc[:10]), t(org), t(d), t(tmax), any_hit)
+    args = (pk.packet_tables(acc), t(org), t(d), t(tmax), any_hit)
     before = pk.packet_cuda.launches
     got = pk.packet_cuda(*args)
     assert pk.packet_cuda.launches == before + 1
@@ -385,7 +390,7 @@ def test_tileloop_seg_cuda_matches_plain(wave, any_hit):
     tw.reset_launch_counts()
     k = tw.tileloop_seg_cuda(*args)
     assert tw.launch_counts()["tileloop_seg"] == 1
-    p = tw.tileloop_seg_plain(*args)
+    p = tw.tileloop_seg_plain(*args, exact_boxes=True)
     _hold_to_k1_bars(k, p, w["tmax"])
     entry, counts = tw._segments_to_rows(off, pair_cl)
     rows = tw.tileloop_cuda(*rays, acc.tri_rows, entry, counts, w["scale"],
@@ -398,10 +403,12 @@ def test_tileloop_seg_cuda_matches_plain(wave, any_hit):
 @pytest.mark.parametrize("mode", ["flat", "tl", "allpairs"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_tilegrid_cuda_matches_plain(cuda_device, wave, mode, any_hit):
-    """K4 against its plain version on the pair lists the grid path
-    builds (interval mask, sentinels; every pair for all-pairs): slots
-    and instances held to K1's bars, the occlusion flag equal on any-hit
-    waves; each mode counts under its own launch name."""
+    """K4 against its plain version's exact walk on the pair lists the
+    grid path builds (interval mask, sentinels; every pair for
+    all-pairs): closest bit-equal in every output (K1's walk over the
+    tile's real pairs at distance 0, which prunes as the exact walk
+    does), the occlusion flag equal on any-hit waves; each mode counts
+    under its own launch name."""
     if mode == "flat":
         w = wave
         rays = (w["org"], w["dirn"], w["inv_d"], w["tmax"])
@@ -423,13 +430,14 @@ def test_tilegrid_cuda_matches_plain(cuda_device, wave, mode, any_hit):
     name = "tilegrid" + ("_tl" if tl else "") + ("_allpairs" if all_pairs
                                                  else "")
     assert tw.launch_counts()[name] == 1
-    p = tw.tilegrid_plain(*args, **tl)
+    p = tw.tilegrid_plain(*args, exact_boxes=True, **tl)
     assert len(k) == len(p) == (5 if tl else 4)
+    assert bool((p[3] >= 0).any())
     if any_hit:
         assert torch.equal(k[3] >= 0, p[3] >= 0)
-        assert bool((p[3] >= 0).any())
     else:
-        _hold_to_k1_bars(k, p, rays[3])
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -457,3 +465,32 @@ def test_new_paths_render_on_cuda_match_cpu(cuda_device, monkeypatch, env,
     b = fb.resolve(cpu).numpy()
     assert np.isfinite(a).all()
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["flat", "tl"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_tilegrid_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
+    """K4 on pair lists at the edges of K1's ring
+    (chip_smoke.grid_edge_case: no pairs, one, an odd count, the longest
+    list, and a list whose slices vote themselves done right after a
+    fetch ahead), cut from 8-tile grid lists, flat and two-level: held
+    to the plain version's exact walk by chip_smoke.check_k4_edges, which
+    raises on a miss."""
+    import chip_smoke
+
+    if mode == "flat":
+        w = _standin_wave(cuda_device, 8)
+        rays = (w["org"], w["dirn"], w["inv_d"], w["tmax"])
+        acc, tl = w["accel"], {}
+    else:
+        args, tl = _k1_modes_case(mode, cuda_device, n_tiles=8)
+        rays = args[:4]
+        acc = _k1_modes_accel(mode, cuda_device)
+    n_c = acc.cluster_lo.shape[0]
+    packed, _, over = tw._grid_list(
+        rays[0], rays[1], rays[3], acc.cluster_lo, acc.cluster_hi,
+        n_clusters=n_c, pair_cap=8 * (n_c + 1), per_tile_clamp=n_c + 1)
+    assert not bool(over)
+    chip_smoke.check_k4_edges(mode, rays, acc.tri_rows, packed, any_hit,
+                              **tl)

@@ -225,3 +225,77 @@ def test_packet_render_matches_reference(monkeypatch):
         scene=port_proc.bunny_standin(3))
     tile_img = fb.resolve(tile).numpy()
     assert float(np.sqrt(np.mean((img - tile_img) ** 2))) <= RMSE_TOL
+
+
+@pytest.mark.parametrize("preset", ["bunny", "sponza"])
+def test_packed_nodes_decode(preset):
+    """K5's packed node words (two 16-byte words a node, first << 8 |
+    count in the last) decode to the node tables they came from, for the
+    packet BVHs of the bunny and the sponza stand-in (the presets'
+    scenes), whose leaves' row counts and first rows fit the packing;
+    a count past the bits raises."""
+    from tpurt_torch.scene.loader import load_scene
+
+    scene = load_scene(get_config(preset).scene)
+    acc = build_packet_accel(None, port_meta(scene), scene=scene).to("cpu")
+    tables = pk.packet_tables(acc)
+    nodes = tables[10]
+    assert nodes.shape == (tables[0].shape[0], 8)
+    assert nodes.dtype == torch.float32 and nodes.is_contiguous()
+    ints = lambda k: nodes[:, k].contiguous().view(torch.int32)
+    fc = ints(7)
+    decoded = (nodes[:, 0], nodes[:, 1], nodes[:, 2], nodes[:, 4],
+               nodes[:, 5], nodes[:, 6], fc >> pk.COUNT_BITS,
+               fc & ((1 << pk.COUNT_BITS) - 1), ints(3))
+    for got, want in zip(decoded, tables[:9]):
+        assert torch.equal(got, want.to(got.dtype))
+    assert int(tables[7].max()) >= 1  # leaves with rows
+    bad = list(tables[:10])
+    bad[7] = bad[7].clone()
+    bad[7][int(torch.nonzero(bad[7])[0, 0])] = 1 << pk.COUNT_BITS
+    with pytest.raises(ValueError, match="packed word"):
+        pk.pack_nodes(bad)
+
+
+def _shared_fold(tc, lanes=4):
+    """The kernel's shared row fold (csrc/packet.cu, leaf_rows): lane s of
+    a group keeps the first minimum of its triangles s, s + lanes, …, then
+    the group combines by (t, triangle) in the kernel's xor order.
+    Returns the winning triangle of each row."""
+    best = []
+    for s in range(lanes):
+        t, j = tc[:, s].copy(), np.full(tc.shape[0], s)
+        for k in range(s + lanes, tc.shape[1], lanes):
+            take = tc[:, k] < t
+            t, j = np.where(take, tc[:, k], t), np.where(take, k, j)
+        best.append((t, j))
+    off = 1
+    while off < lanes:
+        nxt = []
+        for s in range(lanes):
+            (t, j), (ot, oj) = best[s], best[s ^ off]
+            take = (ot < t) | ((ot == t) & (oj < j))
+            nxt.append((np.where(take, ot, t), np.where(take, oj, j)))
+        best, off = nxt, off * 2
+    assert all((b[1] == best[0][1]).all() for b in best)
+    return best[0][1]
+
+
+def test_shared_row_fold_is_the_sequential_fold():
+    """K5's 4-lane row fold picks the triangle of the sequential
+    12-triangle fold (the first at the minimal t; failed tests at BIG) on
+    seeded rows whose candidates tie at equal t all the time."""
+    rng = np.random.default_rng(17)
+    tc = rng.choice(np.float32([0.5, 1.25, 2.0, 3.0, pk.BIG]),
+                    size=(20000, 12)).astype(np.float32)
+    tc[:50] = np.float32(pk.BIG)  # every test failed: triangle 0
+    tc[50:100] = np.float32(1.25)  # all twelve tied
+    want = np.argmin(tc, axis=1)  # numpy: the first minimum
+    seq = np.zeros(tc.shape[0], np.int64)
+    for j in range(1, 12):  # the kernel's own-row fold, strict '<'
+        seq = np.where(tc[:, j] < tc[np.arange(tc.shape[0]), seq], j, seq)
+    np.testing.assert_array_equal(seq, want)
+    np.testing.assert_array_equal(_shared_fold(tc), want)
+    assert (want[:50] == 0).all() and (want[50:100] == 0).all()
+    ties = (tc == tc.min(axis=1, keepdims=True)).sum(axis=1) > 1
+    assert ties.mean() > 0.3

@@ -75,6 +75,75 @@ def test_grid_lists_match_reference(monkeypatch, name, k, avg):
     assert bool(overflow) == bool(w_kw["overflow"]) == (not all_pairs)
 
 
+def kernel_pair_bounds(packed, tile):
+    """csrc/tileloop.cu's search for a tile's real pairs in K4's list
+    (``pair_key``, ``pair_bounds``: a warp's 32 probes a round), step for
+    step: (lo, hi)."""
+    words = packed.tolist()
+
+    def key(p):
+        tile_p, kind = words[p] >> 16, 1
+        if words[p] & 0xFFFF == 0:
+            kind = 2 if p > 0 and words[p - 1] >> 16 == tile_p else 0
+        return tile_p * 4 + kind
+
+    def search(k):
+        lo, hi = 0, len(words)
+        while lo < hi:
+            step = (hi - lo + 31) // 32
+            q = [lo + (lane + 1) * step - 1 for lane in range(32)]
+            ge = [p >= hi or key(p) >= k for p in q]
+            if not any(ge):
+                return hi
+            j = ge.index(True)
+            lo, hi = lo + j * step, min(hi, q[j])
+        return lo
+
+    return search(tile * 4 + 1), search(tile * 4 + 2)
+
+
+@pytest.mark.parametrize("name,avg,chunk", [("bunny", 6, 3), ("bunny", 64, 2),
+                                            ("cornell", 0, 3), ("edge", 0, 3)],
+                         ids=["cut", "chunks", "allpairs", "edge"])
+def test_kernel_pair_search_finds_the_grid_rows(name, avg, chunk):
+    """The segment each K4 block finds in the pair list by binary search
+    holds exactly the entries of ``grid_rows``, tile by tile: the
+    sentinels and the fill slots left out, on a cut list, on lists of
+    several launch chunks laid end to end (fill slots in mid-list), on
+    the all-pairs list (neither) and on a list whose tiles hold no pair
+    (a sentinel alone, a sentinel then fill slots)."""
+    if name == "edge":
+        packed = torch.tensor([0, 65536, 65536 + 3, 65536 + 5, 2 * 65536]
+                              + [2 * 65536] * 3, dtype=torch.int32)
+    else:
+        s = setup(name)
+        org, d, tmv = wave(name, 3, False, False)
+        n_c = s["lo"].shape[0]
+        all_pairs = name == "cornell"
+        t = torch.from_numpy
+        (_, _, packed), = tw._wave_grid_lists(
+            t(org), t(d), t(tmv), t(s["lo"]), t(s["hi"]), chunk,
+            n_clusters=n_c, pair_cap=chunk * (n_c if all_pairs else avg),
+            per_tile_clamp=n_c + 1, all_pairs=all_pairs)[0]
+    entries, counts = tw.grid_rows(packed, 3)
+    for tile in range(3):
+        lo, hi = kernel_pair_bounds(packed, tile)
+        assert hi - lo == int(counts[tile])
+        got = (packed[lo:hi] & 0xFFFF) - 1
+        assert torch.equal(got, entries[tile, :hi - lo])
+        assert bool((packed[lo:hi] >> 16 == tile).all())
+    assert int(counts.sum()) > 0
+    # what there was to skip: a sentinel a tile, and fill slots where the
+    # chunks' pairs left room
+    skipped = int(((packed & 0xFFFF) == 0).sum())
+    assert skipped == (0 if name == "cornell" else 3 if avg == 6 else
+                       packed.numel() - int(counts.sum()))
+    if avg == 64:
+        assert skipped > 3
+    if name == "edge":
+        assert counts.tolist() == [0, 2, 0]
+
+
 @pytest.mark.parametrize("name,any_hit,smem", [("bunny", False, True),
                                                ("bunny", True, False),
                                                ("sponza_small", False, False),

@@ -1,7 +1,9 @@
-// Tile traversal loop: the Hopper port of the TPU kernel
-// tpurt/kernels/tilewave.py::_tileloop_kernel (launcher
-// _launch_tiles_loop), closest-hit and lean any-hit, with the modes the
-// reference's paths reach:
+// Tile traversal loop: the Hopper port of two TPU kernels of
+// tpurt/kernels/tilewave.py, _tileloop_kernel (K1, launcher
+// _launch_tiles_loop; closest-hit and lean any-hit) and _tile_kernel (K4,
+// the grid over pairs, launchers _trace_tiles and _launch_tiles;
+// closest-hit and any-hit), as one walk with the modes the reference's
+// paths reach:
 //
 //   flat       entries are cluster ids; cluster c's rows start at 8c;
 //   all-pairs  the same code fed the row [0, 1, ..., C-1] with scale 0
@@ -23,7 +25,14 @@
 //   kSeg       the pair-segment mode: the tile's entries are
 //              pair_cl[off[tile] .. off[tile + 1]) of one flat,
 //              tile-major list instead of the first counts[tile] words of
-//              its entry row (flat or two-level; never with kSc).
+//              its entry row (flat or two-level; never with kSc);
+//   kPairs     the grid over pairs (K4, tpurt_tilegrid): the tile's
+//              entries are its real pairs in the reference's tile-major
+//              pair list, tile << 16 | (cluster + 1), which each block
+//              finds by two searches of the list (pair_bounds: the
+//              sentinel and the fill slots are left out); the cluster is
+//              (w & 0xFFFF) - 1 and the distance 0 (scale 0, as in the
+//              all-pairs mode).
 //
 // Per ray the work is fixed by its own walk: for each of its tile's
 // front-to-back entries ((tn_q << 16) | id, sorted by the caller) whose
@@ -81,6 +90,13 @@
 // sequential walk: the same rows, in order, each against the best t it
 // had then.
 //
+// The hit modes: closest, lean any-hit (kLean: the window test, an
+// occluded ray retires with bt = -1), and K4's any-hit (kOccluded: the
+// closest body, and a ray stops walking once it holds a hit, bs >= 0; the
+// caller reads bs >= 0 only). A ray is done with an entry at quantized
+// distance deq once bt < deq (or, kOccluded, once bs >= 0): that is the
+// far break's vote, the warp skip and the entry's live test alike.
+//
 // Registers: __launch_bounds__(threads, 65536 / (threads * cap)) with the
 // cap kRegCap (flat) or kTlRegCap (two-level: 9 more live registers for
 // the object-space ray); ptxas spills nothing at these caps.
@@ -88,7 +104,9 @@
 // What bounds it on this card: the issue rate of the box and triangle
 // tests, and then the barrier per group (a slice waits for its slowest
 // warp) and the L2 reads of the rows, which each slice of a tile fetches
-// for itself.
+// for itself. K4's lists carry no distances, so only dead (and, for its
+// any-hit, occluded) rays stop early and every live ray tests every
+// cluster box of its tile's list.
 //
 // Built with -fmad=false and IEEE division (1/det, 1/d), matching the
 // reference's op order term for term; the wide shared-memory reads change
@@ -121,6 +139,12 @@ constexpr int kTlRegCap = 80;        // the same, two-level variants
 constexpr int kTriLanes = 4;         // lanes sharing one row's tests
 constexpr int kCoopPer4 = 8;         // shared rows while 4 x rounds < this
                                      // x rows the warp's lanes touch
+
+// What a walk computes (the note above).
+enum Hit { kClosest, kLean, kOccluded };
+// Where a tile's entries come from: its entry row (counts), a segment of
+// a flat list (off), or the real pairs of a pair list (pair_bounds).
+enum Src { kRows, kSeg, kPairs };
 
 template <bool kTwoLevel, bool kSc>
 struct Walk {
@@ -530,7 +554,13 @@ struct Fetch {
   uint32_t bytes;
 };
 
-template <bool kTwoLevel, bool kSc>
+// The cluster (kSc: supercluster) id of entry word e.
+template <int kSrc>
+__device__ __forceinline__ int entry_id(int32_t e) {
+  return (e & 0xFFFF) - (kSrc == kPairs ? 1 : 0);
+}
+
+template <bool kTwoLevel, bool kSc, int kSrc>
 __device__ __forceinline__ Fetch group_fetch(
     int g, int lane, int n, const int32_t* __restrict__ ent,
     const float* __restrict__ tri_rows, const int32_t* __restrict__ pair_meta,
@@ -538,7 +568,7 @@ __device__ __forceinline__ Fetch group_fetch(
   constexpr int kEntries = Walk<kTwoLevel, kSc>::kEntries;
   const int p = g * kEntries + lane;
   if (lane >= kEntries || p >= n) return {nullptr, 0u};
-  int c = ent[p] & 0xFFFF, nch = 1;
+  int c = entry_id<kSrc>(ent[p]), nch = 1;
   if (kSc) {
     const int32_t v = sc_meta[c];
     c = v & 0xFFFF;
@@ -559,7 +589,54 @@ __device__ __forceinline__ void group_issue(const Fetch& f, int lane,
     bulk_copy(stage + lane * kClusterFloats, f.src, f.bytes, bar);
 }
 
-template <bool kLean, bool kTwoLevel, bool kSc, bool kSeg>
+// The key of word p of K4's tile-major pair list: its tile x 4 plus its
+// kind, 0 for its tile's sentinel (a first word of cluster field 0), 1
+// for a real pair, 2 for a fill slot (cluster field 0 after the first
+// word; fill slots close a launch chunk's last tile). In a tile's stretch
+// of the list the sentinel comes first, then the real pairs, then any
+// fill, so the key never falls along the list.
+__device__ __forceinline__ int pair_key(const int32_t* __restrict__ pairs,
+                                        int p) {
+  const int32_t w = pairs[p];
+  const int tile = w >> 16;
+  int kind = 1;
+  if ((w & 0xFFFF) == 0)
+    kind = p > 0 && (pairs[p - 1] >> 16) == tile ? 2 : 0;
+  return tile * 4 + kind;
+}
+
+// The first word of the list whose key is at least ``key`` (n_pairs if
+// none): with tile * 4 + 1 the start of the tile's real pairs, with
+// tile * 4 + 2 their end. The 32 lanes of a warp search together: each
+// round cuts the range that holds the answer into 32 pieces and probes
+// the last word of each, so a list of n words takes log32(n) rounds of
+// loads (5 for the bunny's 2.9 M slots) where a binary search takes
+// log2(n).
+__device__ __forceinline__ int pair_bounds(const int32_t* __restrict__ pairs,
+                                           int n_pairs, int key, int lane) {
+  int lo = 0, hi = n_pairs;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int q = lo + (lane + 1) * step - 1;
+    const unsigned ge = __ballot_sync(
+        kFullMask, q >= hi || pair_key(pairs, q) >= key);
+    if (ge == 0) return hi;
+    const int j = __ffs(ge) - 1;  // the first piece whose last word is >=
+    hi = min(hi, lo + (j + 1) * step - 1);
+    lo += j * step;
+  }
+  return lo;
+}
+
+// Whether a ray is done with an entry at quantized distance deq: its best
+// t is below it (a dead or lean-occluded ray has bt = -1), or, kOccluded,
+// it holds a hit.
+template <int kHit>
+__device__ __forceinline__ bool done_at(float bt, float bs, float deq) {
+  return bt < deq || (kHit == kOccluded && bs >= 0.f);
+}
+
+template <int kHit, bool kTwoLevel, bool kSc, int kSrc>
 __global__ void __launch_bounds__(Walk<kTwoLevel, kSc>::kThreads,
                                   Walk<kTwoLevel, kSc>::kMinBlocks)
 tileloop_kernel(const float* __restrict__ org,
@@ -569,7 +646,8 @@ tileloop_kernel(const float* __restrict__ org,
                 const float* __restrict__ tri_rows,
                 const int32_t* __restrict__ entries,
                 const int32_t* __restrict__ counts,
-                const int32_t* __restrict__ off, int cp, float scale,
+                const int32_t* __restrict__ seg_lo,
+                const int32_t* __restrict__ seg_hi, int cp, float scale,
                 const int32_t* __restrict__ pair_meta,
                 const float* __restrict__ inv_xform,
                 const int32_t* __restrict__ sc_meta,
@@ -577,8 +655,10 @@ tileloop_kernel(const float* __restrict__ org,
                 float* __restrict__ bv_out, float* __restrict__ bs_out,
                 float* __restrict__ bi_out) {
   using W = Walk<kTwoLevel, kSc>;
+  constexpr bool kLeanBody = kHit == kLean;
   extern __shared__ __align__(128) float ring[];  // kStages x kStageFloats
   __shared__ uint64_t full[kStages];
+  __shared__ int seg[2];  // kPairs: the tile's real pairs
 
   const long tile = blockIdx.x / W::kSlices;
   const long ray = static_cast<long>(blockIdx.x) * W::kThreads + threadIdx.x;
@@ -588,19 +668,30 @@ tileloop_kernel(const float* __restrict__ org,
   float bt = tm >= 0.f ? tm : -1.f;
   float bu = 0.f, bv = 0.f, bs = -1.f, bi = -1.f;
 
-  const int n = kSeg ? off[tile + 1] - off[tile] : counts[tile];
-  const int32_t* ent = kSeg ? entries + off[tile] : entries + tile * cp;
-  const int n_groups = (n + W::kEntries - 1) / W::kEntries;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
     mbar_fence_init();
   }
+  // kPairs (cp is the list's length): warp 0 finds where the tile's real
+  // pairs start, warp 1 where they end
+  if (kSrc == kPairs && warp < 2) {
+    const int key = static_cast<int>(tile) * 4 + 1 + warp;
+    const int b = pair_bounds(entries, cp, key, lane);
+    if (lane == 0) seg[warp] = b;
+  }
   __syncthreads();
+  const int e0p = kSrc == kRows ? 0 : kSrc == kSeg ? seg_lo[tile] : seg[0];
+  const int n = kSrc == kRows   ? counts[tile]
+                : kSrc == kSeg ? seg_hi[tile] - e0p
+                               : seg[1] - e0p;
+  const int32_t* ent = kSrc == kRows ? entries + tile * cp : entries + e0p;
+  const int n_groups = (n + W::kEntries - 1) / W::kEntries;
   if (warp == 0) {
     for (int h = 0; h < kStages - 1 && h < n_groups; ++h)
-      group_issue(group_fetch<kTwoLevel, kSc>(h, lane, n, ent, tri_rows,
-                                                   pair_meta, sc_meta),
-                       lane, ring + h * W::kStageFloats, &full[h]);
+      group_issue(group_fetch<kTwoLevel, kSc, kSrc>(h, lane, n, ent,
+                                                    tri_rows, pair_meta,
+                                                    sc_meta),
+                  lane, ring + h * W::kStageFloats, &full[h]);
   }
 
   int32_t e_next = n > 0 ? ent[0] : 0;
@@ -613,26 +704,28 @@ tileloop_kernel(const float* __restrict__ org,
     const int gf = g + kStages - 1;
     Fetch f = {nullptr, 0u};
     if (warp == 0 && gf < n_groups)
-      f = group_fetch<kTwoLevel, kSc>(gf, lane, n, ent, tri_rows, pair_meta,
-                                      sc_meta);
-    // far break; also the point after which no thread reads group g - 1's
-    // stage, which group gf takes over
-    if (__syncthreads_and(bt < deq0)) break;
+      f = group_fetch<kTwoLevel, kSc, kSrc>(gf, lane, n, ent, tri_rows,
+                                            pair_meta, sc_meta);
+    // far break (K4's any-hit: every ray occluded or dead); also the
+    // point after which no thread reads group g - 1's stage, which group
+    // gf takes over
+    if (__syncthreads_and(done_at<kHit>(bt, bs, deq0))) break;
     if (warp == 0 && gf < n_groups)
       group_issue(f, lane, ring + (gf % kStages) * W::kStageFloats,
-                       &full[gf % kStages]);
-    // sorted: a ray below deq0 skips the whole group, and so does a warp
-    // of such rays
-    if (__all_sync(kFullMask, bt < deq0)) continue;
+                  &full[gf % kStages]);
+    // sorted: a ray done at deq0 is done with the whole group, and so is
+    // a warp of such rays
+    if (__all_sync(kFullMask, done_at<kHit>(bt, bs, deq0))) continue;
     mbar_wait(&full[g % kStages], (g / kStages) & 1);
     const float* stage = ring + (g % kStages) * W::kStageFloats;
     for (int q = 0; q < W::kEntries; ++q) {
       const int p = g * W::kEntries + q;
       if (p >= n) break;
       const int32_t e = q ? ent[p] : e0;
-      const bool live = !(bt < static_cast<float>(e >> 16) * scale);
+      const bool live =
+          !done_at<kHit>(bt, bs, static_cast<float>(e >> 16) * scale);
       if (!__any_sync(kFullMask, live)) continue;
-      const int id = e & 0xFFFF;
+      const int id = entry_id<kSrc>(e);
       int c = id, nch = 1;  // first cluster and cluster count of the entry
       if (kSc) {
         const int32_t v = sc_meta[id];
@@ -643,9 +736,9 @@ tileloop_kernel(const float* __restrict__ org,
       const Ray r = cluster_ray<kTwoLevel>(w, c, pair_meta, inv_xform, inst);
       for (int k = 0; k < nch; ++k) {
         // an occluded lane (bt = -1) reaches no box: it takes no part
-        cluster_body<kLean>(stage + (q + k) * kClusterFloats, r, inst, live,
-                            bt, bu, bv, bs, bi);
-        if (kLean && __all_sync(kFullMask, bt < 0.f)) break;
+        cluster_body<kLeanBody>(stage + (q + k) * kClusterFloats, r, inst,
+                                live, bt, bu, bv, bs, bi);
+        if (kLeanBody && __all_sync(kFullMask, bt < 0.f)) break;
       }
     }
   }
@@ -662,186 +755,53 @@ tileloop_kernel(const float* __restrict__ org,
   if (kTwoLevel) bi_out[ray] = bi;
 }
 
-// Copy n consecutive clusters' rows from row0 into shared memory, then the
-// barrier after which every thread reads them (the grid kernel's
-// staging: one 1024-thread block per tile).
-__device__ __forceinline__ void stage_rows(float* rows,
-                                           const float* __restrict__ tri_rows,
-                                           long row0, int n) {
-  const float* src = tri_rows + row0 * kLanesPerRow;
-  for (int i = threadIdx.x; i < n * kClusterFloats; i += kTile)
-    rows[i] = src[i];
-  __syncthreads();
-}
+// The K1 and K4 launches: every variant takes the same arguments.
+struct Launch {
+  const float *org, *dirn, *inv_d, *tmax, *tri_rows;
+  const int32_t *entries, *counts, *seg_lo, *seg_hi;
+  int n_tiles, cp;  // cp: the entry rows' width; kPairs: the list's length
+  float scale;
+  const int32_t* pair_meta;
+  const float* inv_xform;
+  const int32_t* sc_meta;
+  float *bt, *bu, *bv, *bs, *bi;
+  cudaStream_t stream;
+};
 
-// Grid over (tile, cluster) pairs: the Hopper port of the TPU kernel
-// tpurt/kernels/tilewave.py::_tile_kernel (launchers _trace_tiles,
-// _launch_tiles), closest-hit and any-hit, flat or two-level (kTwoLevel as
-// above, instance in a fifth output).
-//
-// The pair list is the reference's scalar-prefetch operand:
-// tile << 16 | (cluster + 1), tile-major, each tile's sentinel (cluster -1)
-// first, then its clusters in cluster order, then fill slots (tile T-1,
-// cluster -1) up to the list's capacity. The TPU grid runs one step per
-// pair and folds each pair into its tile's output block, revisiting the
-// block across consecutive steps; blocks here run in no order, so one block
-// per 1024-ray tile walks its own contiguous segment of the list (found by
-// a binary search on the tile field) and the sentinel's initialisation is
-// the block's own. Per pair, per thread: the cluster box pre-test, then per
-// row the sub-box test and the 12 triangle tests folded with strict '<'
-// against the running best (lane_rows): the reference's row
-// min-tree, row-winner fold and pair-winner fold keep the same candidate
-// (the first at the minimal t, in pair, row and lane order). There is no
-// far break (the pairs carry no entry distance). Any-hit runs the same
-// closest body and ends the tile once every lane is occluded (bs >= 0) or
-// dead (bt < 0), the reference's early-out; the caller reads bs >= 0 only.
-//
-// Bound on this card: the latency of the serial pair loop (barrier, 4 KB
-// row copy, barrier, tests); the primary interval mask of the grid path
-// passes more pairs per tile than the exact entries. It keeps the loop
-// kernel's first design (one 1024-thread block per tile, rows staged by
-// plain loads, each thread walking its own rows); the ring and the shared
-// rows above are later work for it (shared rows lost on the all-pairs
-// Cornell list, whose rows are dense).
-
-// First index of the tile-major pair list whose tile field is >= t.
-__device__ __forceinline__ int tile_start(const int32_t* __restrict__ pairs,
-                                          int n_pairs, long t) {
-  int lo = 0, hi = n_pairs;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((pairs[mid] >> 16) < t)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-template <bool kAny, bool kTwoLevel>
-__global__ void __launch_bounds__(kTile)
-tilegrid_kernel(const float* __restrict__ org,
-                const float* __restrict__ dirn,
-                const float* __restrict__ inv_d,
-                const float* __restrict__ tmax,
-                const float* __restrict__ tri_rows,
-                const int32_t* __restrict__ pairs, int n_pairs,
-                const int32_t* __restrict__ pair_meta,
-                const float* __restrict__ inv_xform,
-                float* __restrict__ bt_out, float* __restrict__ bu_out,
-                float* __restrict__ bv_out, float* __restrict__ bs_out,
-                float* __restrict__ bi_out) {
-  __shared__ __align__(16) float rows[kClusterFloats];
-  __shared__ int seg[2];
-
-  const long tile = blockIdx.x;
-  const long ray = tile * kTile + threadIdx.x;
-  const Ray w = load_ray(org, dirn, inv_d, ray);
-  const float tm = tmax[ray];
-  float bt = tm >= 0.f ? tm : -1.f;
-  float bu = 0.f, bv = 0.f, bs = -1.f, bi = -1.f;
-  if (threadIdx.x < 2) seg[threadIdx.x] = tile_start(pairs, n_pairs,
-                                                     tile + threadIdx.x);
-  __syncthreads();
-
-  for (int p = seg[0]; p < seg[1]; ++p) {
-    const int c = (pairs[p] & 0xFFFF) - 1;
-    if (c < 0) continue;  // sentinel or fill slot
-    // the barrier before the shared rows are replaced; any-hit: the
-    // early-out once every lane is occluded or dead
-    if (kAny) {
-      if (__syncthreads_and(bs >= 0.f || bt < 0.f)) break;
-    } else {
-      __syncthreads();
-    }
-    stage_rows(rows, tri_rows, cluster_row0<kTwoLevel>(c, pair_meta), 1);
-    float inst;
-    const Ray r = cluster_ray<kTwoLevel>(w, c, pair_meta, inv_xform, inst);
-    if (cluster_reachable(rows, r, bt))
-      lane_rows<false>(rows, r, inst, 0xFFu, false, bt, bu, bv, bs, bi);
-  }
-  bt_out[ray] = bt;
-  bu_out[ray] = bu;
-  bv_out[ray] = bv;
-  bs_out[ray] = bs;
-  if (kTwoLevel) bi_out[ray] = bi;
-}
-
-template <bool kLean, bool kTwoLevel, bool kSc, bool kSeg>
-void launch(const float* org, const float* dirn, const float* inv_d,
-            const float* tmax, const float* tri_rows,
-            const int32_t* entries, const int32_t* counts,
-            const int32_t* off, int n_tiles, int cp, float scale,
-            const int32_t* pair_meta, const float* inv_xform,
-            const int32_t* sc_meta, float* bt, float* bu, float* bv,
-            float* bs, float* bi, cudaStream_t s) {
+template <int kHit, bool kTwoLevel, bool kSc, int kSrc>
+void launch(const Launch& a) {
   using W = Walk<kTwoLevel, kSc>;
-  const auto kernel = tileloop_kernel<kLean, kTwoLevel, kSc, kSeg>;
+  const auto kernel = tileloop_kernel<kHit, kTwoLevel, kSc, kSrc>;
   // once per variant: the ring may pass the 48 KB a launch gets by
   // default (with the barriers' static bytes); a refusal shows as the
   // launch's error
   static const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmemBytes);
   (void)set;
-  kernel<<<n_tiles * W::kSlices, W::kThreads, W::kSmemBytes, s>>>(
-      org, dirn, inv_d, tmax, tri_rows, entries, counts, off, cp, scale,
-      pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi);
+  kernel<<<a.n_tiles * W::kSlices, W::kThreads, W::kSmemBytes, a.stream>>>(
+      a.org, a.dirn, a.inv_d, a.tmax, a.tri_rows, a.entries, a.counts,
+      a.seg_lo, a.seg_hi, a.cp, a.scale, a.pair_meta, a.inv_xform,
+      a.sc_meta, a.bt, a.bu, a.bv, a.bs, a.bi);
 }
 
-// The mode flags as template arguments: supercluster or segment entries
-// (never both), then two-level or flat.
-template <bool kLean, bool kTwoLevel>
-void launch_entries(bool sc, bool seg, const float* org, const float* dirn,
-                    const float* inv_d, const float* tmax,
-                    const float* tri_rows, const int32_t* entries,
-                    const int32_t* counts, const int32_t* off, int n_tiles,
-                    int cp, float scale, const int32_t* pair_meta,
-                    const float* inv_xform, const int32_t* sc_meta,
-                    float* bt, float* bu, float* bv, float* bs, float* bi,
-                    cudaStream_t s) {
+// K1's entry sources as template arguments: supercluster entry rows,
+// segments, or cluster entry rows.
+template <int kHit, bool kTwoLevel>
+void launch_entries(bool sc, bool seg, const Launch& a) {
   if (sc)
-    launch<kLean, kTwoLevel, true, false>(
-        org, dirn, inv_d, tmax, tri_rows, entries, counts, off, n_tiles, cp,
-        scale, pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi, s);
+    launch<kHit, kTwoLevel, true, kRows>(a);
   else if (seg)
-    launch<kLean, kTwoLevel, false, true>(
-        org, dirn, inv_d, tmax, tri_rows, entries, counts, off, n_tiles, cp,
-        scale, pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi, s);
+    launch<kHit, kTwoLevel, false, kSeg>(a);
   else
-    launch<kLean, kTwoLevel, false, false>(
-        org, dirn, inv_d, tmax, tri_rows, entries, counts, off, n_tiles, cp,
-        scale, pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi, s);
+    launch<kHit, kTwoLevel, false, kRows>(a);
 }
 
-template <bool kLean>
-void launch_mode(bool two_level, bool sc, bool seg, const float* org,
-                 const float* dirn, const float* inv_d, const float* tmax,
-                 const float* tri_rows, const int32_t* entries,
-                 const int32_t* counts, const int32_t* off, int n_tiles,
-                 int cp, float scale, const int32_t* pair_meta,
-                 const float* inv_xform, const int32_t* sc_meta, float* bt,
-                 float* bu, float* bv, float* bs, float* bi, cudaStream_t s) {
+template <int kHit>
+void launch_mode(bool two_level, bool sc, bool seg, const Launch& a) {
   if (two_level)
-    launch_entries<kLean, true>(sc, seg, org, dirn, inv_d, tmax, tri_rows,
-                                entries, counts, off, n_tiles, cp, scale,
-                                pair_meta, inv_xform, sc_meta, bt, bu, bv,
-                                bs, bi, s);
+    launch_entries<kHit, true>(sc, seg, a);
   else
-    launch_entries<kLean, false>(sc, seg, org, dirn, inv_d, tmax, tri_rows,
-                                 entries, counts, off, n_tiles, cp, scale,
-                                 pair_meta, inv_xform, sc_meta, bt, bu, bv,
-                                 bs, bi, s);
-}
-
-template <bool kAny, bool kTwoLevel>
-void launch_grid(const float* org, const float* dirn, const float* inv_d,
-                 const float* tmax, const float* tri_rows,
-                 const int32_t* pairs, int n_pairs, int n_tiles,
-                 const int32_t* pair_meta, const float* inv_xform, float* bt,
-                 float* bu, float* bv, float* bs, float* bi, cudaStream_t s) {
-  tilegrid_kernel<kAny, kTwoLevel><<<n_tiles, kTile, 0, s>>>(
-      org, dirn, inv_d, tmax, tri_rows, pairs, n_pairs, pair_meta, inv_xform,
-      bt, bu, bv, bs, bi);
+    launch_entries<kHit, false>(sc, seg, a);
 }
 
 }  // namespace
@@ -868,27 +828,36 @@ extern "C" int tpurt_tileloop(const float* org, const float* dirn,
                               float* bv, float* bs, float* bi,
                               void* stream) {
   if (n_tiles <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool two_level = pair_meta != nullptr;
   const bool sc = sc_meta != nullptr;
   const bool seg = off != nullptr;
   if (sc && seg) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(tri_rows) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  const Launch a = {org, dirn, inv_d, tmax, tri_rows, entries, counts,
+                    off, seg ? off + 1 : nullptr, n_tiles, cp, scale,
+                    pair_meta, inv_xform, sc_meta, bt, bu, bv, bs, bi,
+                    static_cast<cudaStream_t>(stream)};
   if (lean)
-    launch_mode<true>(two_level, sc, seg, org, dirn, inv_d, tmax, tri_rows,
-                      entries, counts, off, n_tiles, cp, scale, pair_meta,
-                      inv_xform, sc_meta, bt, bu, bv, bs, bi, s);
+    launch_mode<kLean>(two_level, sc, seg, a);
   else
-    launch_mode<false>(two_level, sc, seg, org, dirn, inv_d, tmax, tri_rows,
-                       entries, counts, off, n_tiles, cp, scale, pair_meta,
-                       inv_xform, sc_meta, bt, bu, bv, bs, bi, s);
+    launch_mode<kClosest>(two_level, sc, seg, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grid-over-pairs kernel on ``stream``; returns cudaGetLastError().
-// Rays and tables as tpurt_tileloop; pairs (n_pairs,) i32 the tile-major
-// list tile << 16 | (cluster + 1) with one sentinel per tile.
+// The grid over pairs (K4: the Hopper port of the TPU kernel
+// tpurt/kernels/tilewave.py::_tile_kernel, launchers _trace_tiles and
+// _launch_tiles) on ``stream``; returns cudaGetLastError(). Rays and
+// tables as tpurt_tileloop; pairs (n_pairs,) i32 the tile-major list
+// tile << 16 | (cluster + 1), tiles numbered from 0 in this launch, each
+// tile's sentinel (cluster -1) first, then its clusters, and fill slots
+// (cluster -1) after a launch chunk's last tile. The TPU grid runs one
+// step per pair and folds it into its tile's output block; here K1's walk
+// takes each tile's real pairs as its entries at distance 0. Closest
+// keeps the strict-'<' fold in pair, row and lane order; any-hit runs the
+// same closest body and a ray stops once it holds a hit (the reference
+// ends a tile once all of its rays do), so only bs >= 0 is the any-hit
+// result.
 extern "C" int tpurt_tilegrid(const float* org, const float* dirn,
                               const float* inv_d, const float* tmax,
                               const float* tri_rows, const int32_t* pairs,
@@ -898,23 +867,20 @@ extern "C" int tpurt_tilegrid(const float* org, const float* dirn,
                               float* bv, float* bs, float* bi,
                               void* stream) {
   if (n_tiles <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(tri_rows) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Launch a = {org, dirn, inv_d, tmax, tri_rows, pairs, nullptr,
+                    nullptr, nullptr, n_tiles, n_pairs, 0.f, pair_meta,
+                    inv_xform, nullptr, bt, bu, bv, bs, bi,
+                    static_cast<cudaStream_t>(stream)};
   const bool two_level = pair_meta != nullptr;
   if (any_hit && two_level)
-    launch_grid<true, true>(org, dirn, inv_d, tmax, tri_rows, pairs, n_pairs,
-                            n_tiles, pair_meta, inv_xform, bt, bu, bv, bs,
-                            bi, s);
+    launch<kOccluded, true, false, kPairs>(a);
   else if (any_hit)
-    launch_grid<true, false>(org, dirn, inv_d, tmax, tri_rows, pairs,
-                             n_pairs, n_tiles, pair_meta, inv_xform, bt, bu,
-                             bv, bs, bi, s);
+    launch<kOccluded, false, false, kPairs>(a);
   else if (two_level)
-    launch_grid<false, true>(org, dirn, inv_d, tmax, tri_rows, pairs,
-                             n_pairs, n_tiles, pair_meta, inv_xform, bt, bu,
-                             bv, bs, bi, s);
+    launch<kClosest, true, false, kPairs>(a);
   else
-    launch_grid<false, false>(org, dirn, inv_d, tmax, tri_rows, pairs,
-                              n_pairs, n_tiles, pair_meta, inv_xform, bt, bu,
-                              bv, bs, bi, s);
+    launch<kClosest, false, false, kPairs>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ then one link makes a shared library with a plain C interface, loaded
 with ctypes. The build runs at first use, never at import, into
 ``tpurt_torch/build/`` under a name keyed by the sources' hash, so an
 edited source rebuilds in the next process and a stale library is never
-loaded.
+loaded; nvcc's output (the registers and spills of every kernel) is kept
+beside the library, so a process that reuses it can still report them.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``. No
 ``--use_fast_math``: the kernels keep IEEE division (``1/det``,
@@ -60,8 +61,8 @@ class KernelLibrary:
         lib.tpurt_tilegrid.argtypes = [p, p, p, p, p, p, i, i, i, p, p,
                                        p, p, p, p, p, p]
         lib.tpurt_tilegrid.restype = i
-        lib.tpurt_packet.argtypes = [p] * 9 + [i, p, p, p, p, i, i,
-                                               p, p, p, p, p, p]
+        lib.tpurt_packet.argtypes = [p, i, p, p, p, p, ctypes.c_long, i,
+                                     p, p, p, p, p, p]
         lib.tpurt_packet.restype = i
 
 
@@ -146,14 +147,19 @@ def load() -> KernelLibrary:
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
     out = os.path.join(BUILD, f"libtpurt_kernels_{key}.so")
-    log, seconds = "", 0.0
+    seconds = 0.0
     if not os.path.exists(out):
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
         log = _build(srcs, tmp)
         seconds = time.perf_counter() - t0
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{out}.log")
         os.replace(tmp, out)
+    with open(f"{out}.log") as f:
+        log = f.read()
     lib = KernelLibrary(ctypes.CDLL(out), out, log, seconds)
     _LOADED.append(lib)
     return lib

@@ -5,10 +5,12 @@ The reference's Pallas kernel (``_packet_kernel``) walks the packet BVH of
 ``bvh.cluster.build_packet_accel`` with a 2048-ray packet behind one node
 pointer. The port walks it per ray (K5, ``csrc/packet.cu``): stackless,
 in preorder with skip links, a ray entering a node when its own slab test
-passes. ``packet_cuda`` launches the kernel, ``packet_plain`` is its plain
-PyTorch version with the same descent rule (bit-equal on the card), and
-``packet`` takes the plain version only for CPU tensors: a CUDA tensor
-launches the kernel or raises.
+passes, the lanes of a warp sharing out the triangle tests of the leaf
+rows they reach. ``packet_cuda`` launches the kernel over the node tables
+packed two 16-byte words a node (``pack_nodes``, once per accel by
+``packet_tables``), ``packet_plain`` is its plain PyTorch version with the
+same descent rule (bit-equal on the card), and ``packet`` takes the plain
+version only for CPU tensors: a CUDA tensor launches the kernel or raises.
 
 Per ray the result is the reference's — a row's 12 candidates reduce to
 the first one at the minimal t, which beats the running best with a strict
@@ -96,12 +98,13 @@ def packet_plain(tables, org, dirn, tmax, any_hit: bool):
     limit the ray's best t; a leaf's rows in order, each row's first
     candidate at the minimal t against the best with strict '<').
     ``tables`` = (bminx, bminy, bminz, bmaxx, bmaxy, bmaxz, first, count,
-    skip, tri_rows); the ray count is a multiple of PACKET. Returns (bt,
-    bu, bv, bs, (G, 2) f32 counters: node steps, leaf rows)."""
+    skip, tri_rows[, packed nodes]); the ray count is a multiple of
+    PACKET. Returns (bt, bu, bv, bs, (G, 2) f32 counters: node steps, leaf
+    rows)."""
     from tpurt_torch.kernels.tilewave import _row_tests
 
     (bminx, bminy, bminz, bmaxx, bmaxy, bmaxz, first, count, skip,
-     tri_rows) = tables
+     tri_rows) = tables[:10]
     n_nodes = first.shape[0]
     dev = org.device
     n = org.shape[0]
@@ -169,6 +172,36 @@ def packet_plain(tables, org, dirn, tmax, any_hit: bool):
     return bt, bu, bv, bs, stats.to(torch.float32)
 
 
+COUNT_BITS = 8  # packed node word 7: first << COUNT_BITS | count
+
+
+def pack_nodes(tables):
+    """The node tables of ``tables`` (bminx … skip) as K5 reads them:
+    (n_nodes, 8) f32, per node bmin.xyz, skip, bmax.xyz, first <<
+    COUNT_BITS | count, the ints as their bit patterns. Raises where a
+    leaf's row count or first row does not fit its bits."""
+    (bminx, bminy, bminz, bmaxx, bmaxy, bmaxz, first, count,
+     skip) = tables[:9]
+    if first.numel() and (int(count.max()) >= 1 << COUNT_BITS
+                          or int(count.min()) < 0 or int(first.min()) < 0
+                          or int(first.max()) >= 1 << (31 - COUNT_BITS)):
+        raise ValueError("packet BVH nodes do not fit the packed word: "
+                         f"counts up to {int(count.max())} (< "
+                         f"{1 << COUNT_BITS}), first rows up to "
+                         f"{int(first.max())} (< {1 << (31 - COUNT_BITS)})")
+    bits = lambda x: x.to(torch.int32).view(torch.float32)
+    fc = (first.to(torch.int32) << COUNT_BITS) | count.to(torch.int32)
+    return torch.stack([bminx, bminy, bminz, bits(skip), bmaxx, bmaxy,
+                        bmaxz, bits(fc)], dim=1).contiguous()
+
+
+def packet_tables(accel):
+    """The walk's tables of a PacketAccel of tensors: the ten of
+    ``packet_plain`` and the packed nodes K5 reads."""
+    tables = tuple(accel[:10])
+    return tables + (pack_nodes(tables),)
+
+
 def _check_tables(tables, dev):
     from tpurt_torch.kernels.tilewave import _check
 
@@ -184,8 +217,9 @@ def _check_tables(tables, dev):
 
 
 def packet_cuda(tables, org, dirn, tmax, any_hit: bool):
-    """Launch the CUDA walk (csrc/packet.cu) on the current stream.
-    Returns (bt, bu, bv, bs, (G, 2) f32 counters)."""
+    """Launch the CUDA walk (csrc/packet.cu) on the current stream over
+    ``packet_tables``' packed nodes. Returns (bt, bu, bv, bs, (G, 2) f32
+    counters)."""
     from tpurt_torch.kernels import cuda_build
     from tpurt_torch.kernels.tilewave import _check, _stream
 
@@ -195,19 +229,26 @@ def packet_cuda(tables, org, dirn, tmax, any_hit: bool):
     n = org.shape[0]
     if n % PACKET:
         raise ValueError(f"ray count {n} is not a multiple of {PACKET}")
+    if len(tables) != 11:
+        raise ValueError("packet_cuda takes packet_tables(accel): the "
+                         "tables and the packed nodes")
     f32 = torch.float32
     _check("org", org, f32, (n, 3), dev)
     _check("dirn", dirn, f32, (n, 3), dev)
     _check("tmax", tmax, f32, (n,), dev)
     n_nodes = _check_tables(tables, dev)
+    nodes = tables[10]
+    _check("nodes", nodes, f32, (n_nodes, 8), dev)
+    if nodes.data_ptr() % 16:
+        raise ValueError("the packed nodes must be 16-byte aligned")
     out = torch.empty((4, n), dtype=f32, device=dev)
     stats = torch.zeros((n // PACKET, 2), dtype=torch.int32, device=dev)
     lib = cuda_build.load().lib
     err = lib.tpurt_packet(
-        *(t.data_ptr() for t in tables[:9]), n_nodes, tables[9].data_ptr(),
-        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), n,
-        int(bool(any_hit)), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), out[3].data_ptr(), stats.data_ptr(), _stream(dev))
+        nodes.data_ptr(), n_nodes, tables[9].data_ptr(), org.data_ptr(),
+        dirn.data_ptr(), tmax.data_ptr(), n, int(bool(any_hit)),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), stats.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"packet kernel launch failed: cudaError {err}")
     packet_cuda.launches += 1
@@ -286,10 +327,7 @@ def make_packet_intersector(ds, accel, *, ray_sort: str = "octant"):
     del ds
     if ray_sort not in ("none", "octant", "morton"):
         raise ValueError(f"packet ray sort {ray_sort!r}")
-    tables = (accel.node_bminx, accel.node_bminy, accel.node_bminz,
-              accel.node_bmaxx, accel.node_bmaxy, accel.node_bmaxz,
-              accel.node_first, accel.node_count, accel.node_skip,
-              accel.tri_rows)
+    tables = packet_tables(accel)
     prim_tri = accel.prim_tri
     prim_inst = accel.prim_inst
     n_prims = prim_tri.shape[0]

@@ -432,7 +432,7 @@ def _row_tests(rows, o, d, window, lean):
 
 def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
                    scale: float, any_hit: bool, pair_meta=None,
-                   inv_xform=None, sc_meta=None):
+                   inv_xform=None, sc_meta=None, exact_boxes: bool = False):
     """Plain PyTorch version of the traversal loop.
 
     Per ray, every triangle of every cluster in its tile's live entries is
@@ -442,6 +442,16 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
     variant ORs the division-free window test. The far break and the box
     tests only prune, so this version replaces them with conservative
     per-ray box tests (``_slab_pass``) and ignores ``scale``.
+
+    ``exact_boxes``: prune as the kernel does instead, so that a box face
+    a triangle lies on decides as it does there. A ray enters an entry
+    only while its quantized distance ``(e >> 16) * scale`` is not above
+    the ray's best t, tests the cluster box and then each row's sub-box
+    unpadded, in the kernel's op order (``_box_interval``), far-limited
+    by its best t at that point of the walk (the entry's start, the
+    cluster's start, the row's start), and folds each row's 12 tests
+    with strict '<' against that best t. The walk's order matters here,
+    so the closest variant replays it (``_walk_rounds``).
 
     ``pair_meta``/``inv_xform`` (two-level accel): a cluster's rows start
     at ``pair_meta[c] & 0xFFFFF`` and each (ray, cluster) pair is tested
@@ -453,7 +463,6 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
     Returns (bt, bu, bv, bs) per ray, plus bi (instance as f32, −1 where
     none) when ``pair_meta`` is given, as the kernel does.
     """
-    del scale
     dev = org.device
     n = org.shape[0]
     n_tiles = entries.shape[0]
@@ -496,19 +505,22 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
     lanes = torch.arange(p_all, device=dev)
     child = torch.arange(kids, device=dev)
     meta = pair_meta.to(torch.int64) if two_level else None
+    scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
     for a in range(0, n_tiles, tiles_per_chunk):
         b = min(a + tiles_per_chunk, n_tiles)
         ent = entries[a:b, :p_all].to(torch.int64)
         live_e = lanes[None, :] < counts[a:b, None]
         eid = torch.where(live_e, ent & 0xFFFF, 0)  # (Tc, P)
+        deq = (ent >> 16).to(torch.float32) * scale_t
         if sc_meta is not None:
             mv = sc_meta[eid].to(torch.int64)
             first = mv & 0xFFFF
             live_u = live_e[..., None] & (child < (mv >> 16)[..., None])
             cl = torch.where(live_u, first[..., None] + child, 0)
             xcl = first[..., None].expand_as(cl)  # the transform's cluster
-            live_u, cl, xcl = (x.reshape(b - a, n_units)
-                               for x in (live_u, cl, xcl))
+            deq = deq[..., None].expand_as(cl)
+            live_u, cl, xcl, deq = (x.reshape(b - a, n_units)
+                                    for x in (live_u, cl, xcl, deq))
         else:
             live_u, cl, xcl = live_e, eid, eid
         if two_level:
@@ -523,21 +535,35 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
         if two_level:
             o, d = _to_object(o, d, inv_xform[xcl][:, None])
             iv = _safe_inv(d)
-        pair = (_slab_pass(o, iv, b_lo[blk][:, None], b_hi[blk][:, None],
-                           tm)
-                & (tm >= 0.0) & live_u[:, None, :])
+        if exact_boxes:
+            # a best t never rises above tmax, so every unit and row the
+            # walk tests passes these tests at tmax
+            ctn, ctf = _box_interval(o, iv, b_lo[blk][:, None],
+                                     b_hi[blk][:, None])
+            pair = (ctn <= torch.minimum(ctf, tm)) & (deq[:, None, :] <= tm)
+        else:
+            pair = _slab_pass(o, iv, b_lo[blk][:, None], b_hi[blk][:, None],
+                              tm)
+        pair = pair & (tm >= 0.0) & live_u[:, None, :]
         ti, ri, ui = torch.nonzero(pair, as_tuple=True)
         ray = ray0 + ti * TILE + ri  # global ray ids of the pairs
         pc = blk[ti, ui]
-        po, pd = org[ray], dirn[ray]
+        po, pd, piv = org[ray], dirn[ray], inv_d[ray]
         if two_level:
             px = xcl[ti, ui]
             po, pd = _to_object(po, pd, inv_xform[px])
+            piv = _safe_inv(pd)
             inst_f = (meta[px] >> 20).to(torch.float32)
         rb = row_box[pc]  # (M, 8, 6)
-        rpass = _slab_pass(po[:, None], _safe_inv(pd)[:, None],
-                           rb[..., 0:3], rb[..., 3:6], tmax[ray][:, None])
+        if exact_boxes:
+            rtn, rtf = _box_interval(po[:, None], piv[:, None], rb[..., 0:3],
+                                     rb[..., 3:6])
+            rpass = rtn <= torch.minimum(rtf, tmax[ray][:, None])
+        else:
+            rpass = _slab_pass(po[:, None], _safe_inv(pd)[:, None],
+                               rb[..., 0:3], rb[..., 3:6], tmax[ray][:, None])
         mi, row = torch.nonzero(rpass, as_tuple=True)
+        walk = []  # exact closest: the rows that may win, in walk order
         for c0 in range(0, mi.shape[0], rows_per_chunk):
             m = mi[c0:c0 + rows_per_chunk]
             rr = row[c0:c0 + rows_per_chunk]
@@ -548,6 +574,20 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
                 occ[rg[hit.any(dim=1)]] = True
                 continue
             t, u, v, sl, ok = _row_tests(rows, po[m], pd[m], None, False)
+            if exact_boxes:
+                # the row's fold: its first candidate at the minimal t
+                tc = torch.where(ok, t, math.inf)
+                j = torch.argmin(tc, dim=1, keepdim=True)
+                rt = tc.gather(1, j)[:, 0]
+                k = rt < tmax[rg]
+                um = ui[m][k]
+                walk.append((
+                    rg[k], um * ROWS_PER_CLUSTER + rr[k], um, um // kids,
+                    deq[ti[m][k], um], ctn[ti[m][k], ri[m][k], um],
+                    rtn[m, rr][k], rt[k], u.gather(1, j)[k, 0],
+                    v.gather(1, j)[k, 0], sl.gather(1, j)[k, 0],
+                    inst_f[m][k] if two_level else None))
+                continue
             key = ((ui[m] * 96 + rr * 12)[:, None]
                    + torch.arange(12, device=dev)[None, :])
             ok = ok & (t < tmax[rg][:, None])
@@ -556,7 +596,53 @@ def tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
                 rg[k_i], t[k_i, j_i], key[k_i, j_i], u[k_i, j_i],
                 v[k_i, j_i], sl[k_i, j_i], bt, best_k, bu, bv, bs,
                 inst_f[m][k_i] if two_level else None, bi)
+        if walk:
+            _walk_rounds([None if f[0] is None else torch.cat(f)
+                          for f in zip(*walk)], bt, bu, bv, bs, bi)
     return result()
+
+
+def _walk_rounds(cand, bt, bu, bv, bs, bi=None):
+    """Replay each ray's closest walk over its candidate rows, in place.
+
+    ``cand`` = (ray, key, unit, entry, deq, cluster tn, row tn, t, u, v,
+    slot, inst or None): one row per element whose first candidate at the
+    minimal t is t, with the slab entry distances of its unit's cluster
+    box and of its own sub-box (``_box_interval``), ``key`` its place in
+    the walk (unit · 8 + row). Each round every ray takes its next winning
+    row: the first after its last win whose t is below its best t and
+    which the walk tests at that best t — the entry's quantized distance
+    is checked when the walk enters the entry, the cluster box when it
+    enters the cluster, so neither is checked again for a row of the
+    entry or cluster of the last win."""
+    (ray, key, unit, entry, deq, ctn, rtn, t, u, v, sl, inst) = cand
+    n = bt.shape[0]
+    none = torch.full((n,), -1, dtype=torch.int64, device=bt.device)
+    last, last_unit, last_entry = none, none.clone(), none.clone()
+    while ray.numel():
+        b = bt[ray]
+        test = ((t < b) & (rtn <= b)
+                & ((unit == last_unit[ray]) | (ctn <= b))
+                & ((entry == last_entry[ray]) | (deq <= b)))
+        if not bool(test.any()):
+            return
+        first = torch.full((n,), 2 ** 62, dtype=torch.int64,
+                           device=bt.device)
+        first = first.scatter_reduce(0, ray[test], key[test], "amin")
+        win = test & (key == first[ray])
+        w = ray[win]
+        bt[w], bu[w], bv[w], bs[w] = t[win], u[win], v[win], sl[win]
+        if inst is not None:
+            bi[w] = inst[win]
+        last[w], last_unit[w], last_entry[w] = key[win], unit[win], entry[win]
+        # a row before a ray's last win, or at or above its best t, never
+        # wins later: its best t only falls
+        keep = (key > last[ray]) & (t < bt[ray])
+        ray, key, unit, entry, deq, ctn, rtn, t, u, v, sl = (
+            x[keep] for x in (ray, key, unit, entry, deq, ctn, rtn, t, u, v,
+                              sl))
+        if inst is not None:
+            inst = inst[keep]
 
 
 def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs,
@@ -585,17 +671,24 @@ def _merge_closest(rg, t, key, u, v, sl, bt, best_k, bu, bv, bs,
         bi[rw] = inst[win][better]
 
 
-def _box_exact(o, iv, lo, hi, far):
-    """The kernel's slab test (``box_reachable``) in its op order, no
-    padding: the box (lo, hi) is entered at or before ``far``."""
+def _box_interval(o, iv, lo, hi):
+    """The kernel's slab interval (``box_reachable``) in its op order, no
+    padding and no far limit: (tn, tf), and the box (lo, hi) is entered
+    at or before ``far`` exactly when tn <= min(tf, far)."""
     t0 = (lo - o) * iv
     t1 = (hi - o) * iv
     mn, mx = torch.minimum(t0, t1), torch.maximum(t0, t1)
     tn = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
                        torch.clamp_min(mn[..., 2], 0.0))
-    tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
-                       torch.minimum(mx[..., 2], far))
-    return tn <= tf
+    tf = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]), mx[..., 2])
+    return tn, tf
+
+
+def _box_exact(o, iv, lo, hi, far):
+    """The kernel's slab test: the box (lo, hi) is entered at or before
+    ``far``."""
+    tn, tf = _box_interval(o, iv, lo, hi)
+    return tn <= torch.minimum(tf, far)
 
 
 def tileloop_work_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
@@ -887,14 +980,14 @@ def _rows_to_segments(entry, counts, cap=None):
 
 def tileloop_seg_plain(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
                        scale: float, any_hit: bool, pair_meta=None,
-                       inv_xform=None):
+                       inv_xform=None, exact_boxes: bool = False):
     """Plain PyTorch version of K1's pair-segment mode: tile t walks
     ``pair_cl[off[t]:off[t + 1]]`` — the entry-row plain version over
-    those segments laid out as rows."""
+    those segments laid out as rows (``exact_boxes`` as there)."""
     entries, counts = _segments_to_rows(off, pair_cl)
     return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
                           scale, any_hit, pair_meta=pair_meta,
-                          inv_xform=inv_xform)
+                          inv_xform=inv_xform, exact_boxes=exact_boxes)
 
 
 def tileloop_seg_cuda(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
@@ -924,21 +1017,22 @@ def tileloop_seg(org, dirn, inv_d, tmax, tri_rows, off, pair_cl,
 
 
 def tilegrid_plain(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
-                   pair_meta=None, inv_xform=None, all_pairs=False):
+                   pair_meta=None, inv_xform=None, all_pairs=False,
+                   exact_boxes: bool = False):
     """Plain PyTorch version of K4: each tile walks its real pairs of the
     tile-major list ``packed`` (tile << 16 | cluster + 1; sentinels and
     fill slots, cluster −1, skipped) in list order, the closest fold of
-    the entry-row plain version without a far break. Any-hit waves get
-    the same closest result: the kernel's early-out only drops a tile's
-    remaining pairs once every lane is occluded or dead, which changes no
-    lane's occlusion flag (bs ≥ 0), the one field an any-hit caller
-    reads. ``all_pairs`` only names the launch. Returns (bt, bu, bv,
-    bs[, bi]) per ray."""
+    the entry-row plain version without a far break (``exact_boxes`` as
+    there). Any-hit waves get the same closest result: the kernel's
+    early-out only stops a ray once it is occluded (bs ≥ 0) or dead,
+    which changes no ray's occlusion flag, the one field an any-hit
+    caller reads. ``all_pairs`` only names the launch. Returns (bt, bu,
+    bv, bs[, bi]) per ray."""
     del any_hit, all_pairs
     entries, counts = grid_rows(packed, org.shape[0] // TILE)
     return tileloop_plain(org, dirn, inv_d, tmax, tri_rows, entries, counts,
                           0.0, False, pair_meta=pair_meta,
-                          inv_xform=inv_xform)
+                          inv_xform=inv_xform, exact_boxes=exact_boxes)
 
 
 def grid_rows(packed, n_tiles: int):
@@ -962,16 +1056,20 @@ def grid_rows(packed, n_tiles: int):
 
 def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
                   pair_meta=None, inv_xform=None, all_pairs=False):
-    """Launch the CUDA grid-over-pairs kernel (csrc/tileloop.cu,
-    ``tilegrid_kernel``) on the current stream: closest-hit, or any-hit
-    with the all-occluded early-out. ``all_pairs`` (the list holds every
-    (tile, cluster) pair) names the launch "tilegrid_allpairs". Returns
-    (bt, bu, bv, bs[, bi]) per ray."""
+    """Launch the CUDA grid over pairs (K4, the ``kPairs`` variants of
+    csrc/tileloop.cu's walk, each tile finding its real pairs in the list
+    by binary search) on the current stream: closest-hit, or any-hit,
+    where a ray stops at its first hit. ``all_pairs`` (the list holds
+    every (tile, cluster) pair) names the launch "tilegrid_allpairs".
+    Returns (bt, bu, bv, bs[, bi]) per ray."""
     from tpurt_torch.kernels import cuda_build
 
     dev, n_tiles = _ray_args("tilegrid_cuda", org, dirn, inv_d, tmax,
                              tri_rows, pair_meta, inv_xform)
     _check("packed", packed, torch.int32, (packed.shape[0],), dev)
+    if tri_rows.data_ptr() % 16:
+        raise ValueError("tri_rows must be 16-byte aligned (its clusters "
+                         "are fetched by bulk copies)")
     two_level = pair_meta is not None
     out = torch.empty((5 if two_level else 4, org.shape[0]),
                       dtype=torch.float32, device=dev)

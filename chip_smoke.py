@@ -85,7 +85,27 @@ Phases, in order; any failure exits nonzero and prints no result:
                 RMSE is not the bar); and the bvh_pair bunny golden with
                 pairs_per_ray=1, which must retry at least once and end
                 without overflow;
-  5. report   — the kernel JSON line, the nvidia-smi line, and last the
+  5. files    — the scene-file, texture, cut-out and CLI path, through
+                ``tpurt_torch.cli.main`` where a user would call it: the
+                bunny config over the bunny plus a 16×16-texel RGBA fence
+                cut out at alpha 0.5, against its geometric twin (the
+                opaque texels as sub-quads), through bvh_tile and
+                bvh_packet, RMSE ≤ 1e-3, with both batches' Mrays/s; the
+                bunny exported to OBJ and sponza to GLB, each rendered
+                from the file within rtol and atol 1e-5 of its preset's
+                render; a hand-written .gltf (an embedded RGBA PNG,
+                alphaMode MASK) whose device arrays equal the same scene
+                built in memory and whose render is bit-equal to it; the
+                8-frame sponza flythrough (one scene-context build, frame
+                0 bit-equal to ``render``'s image, no two frames equal,
+                ms a frame and Mrays/s); resume 4 → 8 spp bit-equal to a
+                straight 8-spp render, with the reference's checkpoint
+                keys; and the native host library (loaded, or why not;
+                its OBJ parse equal to the Python parser's). The cut-out
+                renders and the flythrough run with the launch counters
+                zeroed just before and read just after, and their kernels
+                must have launched;
+  6. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -1284,6 +1304,530 @@ def golden_phase(device) -> None:
                                  "limit")
 
 
+# --- 5. files and CLI ---------------------------------------------------
+
+CUTOUT_RMSE = 1e-3  # the cut-out scene against its geometric twin
+CUTOUT_OFF = 2e-3  # a pixel "differs" past this (logged)
+ROUNDTRIP_TOL = 1e-5  # tests/unit/test_export.py:102-121
+FENCE_TEXELS = 16
+# the fence: a vertical quad x in [x0, x1], y in [y0, y1] at depth z,
+# between the bunny preset's camera and the blob, under the lamp's edge
+FENCE = (-2.4, 1.8, 0.0, 3.4, -1.75)
+# the reference's checkpoint keys (tpurt/render/checkpoint.py)
+CHECKPOINT_KEYS = {"version", "accum", "n_samples", "seed", "batch_index",
+                   "config_json"}
+
+
+def fence_rgba():
+    """(16, 16, 4) f32: a distinct RGB per texel and a checkerboard alpha
+    (texels with an even row + column opaque)."""
+    import numpy as np
+
+    i, j = np.indices((FENCE_TEXELS, FENCE_TEXELS))
+    rgba = np.ones((FENCE_TEXELS, FENCE_TEXELS, 4), np.float32)
+    rgba[..., 0] = (j + 0.5) / FENCE_TEXELS
+    rgba[..., 1] = (i + 0.5) / FENCE_TEXELS
+    rgba[..., 2] = ((i * 7 + j * 3) % FENCE_TEXELS + 0.5) / FENCE_TEXELS
+    rgba[..., 3] = (i + j + 1) % 2
+    return rgba
+
+
+def _fence_corners(u0=0.0, v0=0.0, u1=1.0, v1=1.0):
+    """The fence's sub-rectangle over uv [u0, u1] × [v0, v1] (v-down: v 0
+    is the top edge): four corners, two triangles, their uvs."""
+    import numpy as np
+
+    x0, x1, y0, y1, z = FENCE
+    x = lambda u: x0 + u * (x1 - x0)
+    y = lambda v: y1 - v * (y1 - y0)
+    verts = np.array([[x(u0), y(v0), z], [x(u1), y(v0), z],
+                      [x(u1), y(v1), z], [x(u0), y(v1), z]], np.float32)
+    uvs = np.array([[u0, v0], [u1, v0], [u1, v1], [u0, v1]], np.float32)
+    return verts, np.array([[0, 1, 2], [0, 2, 3]], np.int32), uvs
+
+
+def add_fence(scene, rgba, geometric: bool):
+    """The fence into ``scene``: one quad textured with ``rgba`` and cut
+    out at alpha 0.5, or (``geometric``) its opaque texels as real
+    sub-quads, each with a Lambert material of its texel's colour — with
+    nearest sampling the two are the same surface
+    (tests/unit/test_alpha_cutout.py)."""
+    import numpy as np
+
+    from tpurt_torch.scene.types import LAMBERT, Instance, Material, Mesh
+
+    if not geometric:
+        tex = scene.add_texture(rgba)
+        mat = scene.add_material(Material(
+            LAMBERT, (1.0, 1.0, 1.0), base_color_texture=tex,
+            alpha_cutoff=0.5, name="fence"))
+        verts, idx, uvs = _fence_corners()
+        mesh = Mesh(verts, idx, mat, uvs=uvs, name="fence")
+    else:
+        n = rgba.shape[0]
+        vs, ids, mats = [], [], []
+        for i, j in zip(*np.nonzero(rgba[..., 3] >= 0.5)):
+            m = scene.add_material(Material(
+                LAMBERT, tuple(float(c) for c in rgba[i, j, :3]),
+                name=f"texel_{i}_{j}"))
+            verts, idx, _ = _fence_corners(j / n, i / n, (j + 1) / n,
+                                           (i + 1) / n)
+            ids.append(idx + 4 * len(vs))
+            vs.append(verts)
+            mats += [m, m]
+        mesh = Mesh(np.concatenate(vs), np.concatenate(ids),
+                    np.asarray(mats, np.int32), name="fence_texels")
+    scene.add_instance(Instance(scene.add_mesh(mesh), name=mesh.name))
+    return scene
+
+
+def fence_scenes(subdivisions: int = 6):
+    """(cut-out scene, geometric twin): the bunny preset plus the
+    fence."""
+    from tpurt_torch.scene.procedural import bunny_standin
+
+    rgba = fence_rgba()
+    return (add_fence(bunny_standin(subdivisions), rgba, False),
+            add_fence(bunny_standin(subdivisions), rgba, True))
+
+
+def compare_twins(label, a, b):
+    """RMSE and share of pixels off by more than CUTOUT_OFF between two
+    images (mean radiance); raises past CUTOUT_RMSE."""
+    import torch
+
+    d = (a - b).float()
+    rmse = float(torch.sqrt(torch.mean(d * d)))
+    off = float((d.abs().amax(dim=-1) > CUTOUT_OFF).float().mean())
+    log(f"[files] {label}: RMSE {rmse:.3e}, {off:.4%} of pixels differ by "
+        f"more than {CUTOUT_OFF:g}")
+    if not rmse <= CUTOUT_RMSE:
+        raise AssertionError(f"{label}: RMSE {rmse:.3e} over {CUTOUT_RMSE}")
+    return rmse, off
+
+
+def cutout_twin_check(device, width, height, spp, subdivisions=6,
+                      intersectors=("bvh_tile", "bvh_packet")):
+    """Render the fence scene and its geometric twin through each
+    intersector (the shade-record and the per-field alpha probes) at
+    ``width``×``height`` × ``spp`` (2 bounces, NEE), each once as warmup
+    and once with the launch counters zeroed around it; hold each pair
+    to CUTOUT_RMSE. Returns {intersector: (cut-out stats, twin stats,
+    cut-out launches)}."""
+    from tpurt_torch import kernels as kn
+    from tpurt_torch.render import framebuffer as fb
+    from tpurt_torch.render import render_scene
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.utils.config import get_config
+
+    cut, twin = fence_scenes(subdivisions)
+    if not scene_meta(cut).has_alpha_cutout or \
+            scene_meta(twin).has_alpha_cutout:
+        raise AssertionError("fence scenes: wrong alpha-cutout flags")
+    out = {}
+    for kind in intersectors:
+        # the bunny preset's config; "custom" keeps the bunny's measured
+        # live caps off a scene whose live counts differ
+        cfg = get_config("bunny", scene="custom", width=width,
+                         height=height, spp=spp, spp_per_batch=spp,
+                         intersector=kind)
+        runs = []
+        for scene in (cut, twin):
+            render_scene(cfg, device=device, scene=scene)
+            kn.reset_launch_counts()
+            state, stats = render_scene(cfg, device=device, scene=scene)
+            runs.append((state, stats, kn.launch_counts()))
+        (a, sa, la), (b, sb, _) = runs
+        for name, s in (("cut-out", sa), ("twin", sb)):
+            if s["pair_overflow"]:
+                raise AssertionError(f"fence {kind} {name}: pair overflow")
+        log(f"[files] fence {kind} {width}x{height} x {spp} spp: cut-out "
+            f"{sa['mrays_per_s']:.4f} Mrays/s ({sa['rays_traced']:.0f} rays "
+            f"in {sa['elapsed_s']:.4f} s), twin {sb['mrays_per_s']:.4f} "
+            f"Mrays/s ({sb['rays_traced']:.0f} rays in "
+            f"{sb['elapsed_s']:.4f} s); cut-out launches {la}")
+        if not bool(fb.resolve(a).isfinite().all()):
+            raise AssertionError(f"fence {kind}: non-finite pixels")
+        compare_twins(f"fence {kind} cut-out vs geometric twin",
+                      fb.resolve(a), fb.resolve(b))
+        out[kind] = (sa, sb, la)
+    return out
+
+
+def rgba_png(img) -> bytes:
+    """(H, W, 4) uint8 → PNG bytes (color type 6, filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                         axis=1)
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def fence_gltf(path: str):
+    """Write a .gltf by hand: the fence (an embedded base64 RGBA PNG,
+    alphaMode MASK at 0.5) over a ground plane, an area light and a
+    camera. Returns the same scene built in memory (the texture through
+    the loader's sRGB → linear conversion)."""
+    import base64
+    import json
+
+    import numpy as np
+
+    from tpurt_torch.core.camera import Camera
+    from tpurt_torch.render.png import srgb_to_linear
+    from tpurt_torch.scene.types import (LAMBERT, Instance, Material, Mesh,
+                                         Scene)
+
+    u8 = np.round(fence_rgba() * 255.0).astype(np.uint8)
+    ground = np.array([[-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6]],
+                      np.float32)
+    lamp = np.array([[-1.5, 5.5, -1.5], [1.5, 5.5, -1.5], [1.5, 5.5, 1.5],
+                     [-1.5, 5.5, 1.5]], np.float32)
+    fence, idx, uvs = _fence_corners()
+    tri = np.array([0, 1, 2, 0, 2, 3], np.uint32)
+    blobs = [ground, tri, lamp, tri, fence, uvs, tri]
+    views, off = [], 0
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": off,
+                      "byteLength": b.nbytes})
+        off += b.nbytes
+    acc = lambda v, n, t, c: {"bufferView": v, "componentType": c,
+                              "count": n, "type": t}
+    lambert = lambda rgb, em=(0.0, 0.0, 0.0), cut=0.0: {"tpurt": {
+        "kind": LAMBERT, "albedo": list(rgb), "emission": list(em),
+        "param0": 0.0, "param1": 0.0, "alpha_cutoff": cut}}
+    cam = dict(position=[3.2, 2.6, -4.5], look_at=[0.0, 1.1, 0.0],
+               up=[0.0, 1.0, 0.0], vfov_deg=38.0)
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1, 2, 3],
+                    "extras": {"tpurt_background": [0.35, 0.45, 0.6]}}],
+        "nodes": [{"mesh": 0, "name": "ground"}, {"mesh": 1, "name": "lamp"},
+                  {"mesh": 2, "name": "fence"},
+                  {"camera": 0, "name": "camera",
+                   "extras": {"tpurt_camera": cam}}],
+        "cameras": [{"type": "perspective",
+                     "perspective": {"yfov": 0.6632, "znear": 0.01}}],
+        "meshes": [
+            {"name": "ground", "primitives": [{
+                "attributes": {"POSITION": 0}, "indices": 1,
+                "material": 0}]},
+            {"name": "lamp", "primitives": [{
+                "attributes": {"POSITION": 2}, "indices": 3,
+                "material": 1}]},
+            {"name": "fence", "primitives": [{
+                "attributes": {"POSITION": 4, "TEXCOORD_0": 5},
+                "indices": 6, "material": 2}]}],
+        "materials": [
+            {"name": "ground", "extras": lambert((0.6, 0.6, 0.62))},
+            {"name": "lamp", "extras": lambert((0.0, 0.0, 0.0),
+                                               (10.0, 9.5, 9.0))},
+            {"name": "fence", "alphaMode": "MASK", "alphaCutoff": 0.5,
+             "pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                      "metallicFactor": 0.0},
+             "extras": lambert((1.0, 1.0, 1.0), cut=0.5)}],
+        "images": [{"uri": "data:image/png;base64,"
+                    + base64.b64encode(rgba_png(u8)).decode()}],
+        "textures": [{"source": 0}],
+        "accessors": [acc(0, 4, "VEC3", 5126), acc(1, 6, "SCALAR", 5125),
+                      acc(2, 4, "VEC3", 5126), acc(3, 6, "SCALAR", 5125),
+                      acc(4, 4, "VEC3", 5126), acc(5, 4, "VEC2", 5126),
+                      acc(6, 6, "SCALAR", 5125)],
+        "bufferViews": views,
+        "buffers": [{"byteLength": off, "uri":
+                     "data:application/octet-stream;base64,"
+                     + base64.b64encode(b"".join(
+                         b.tobytes() for b in blobs)).decode()}],
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+    scene = Scene(name="fence", background=(0.35, 0.45, 0.6))
+    tex = scene.add_texture(np.concatenate(
+        [srgb_to_linear(u8[..., :3]),
+         u8[..., 3:4].astype(np.float32) / 255.0], axis=2))
+    m_ground = scene.add_material(Material(LAMBERT, (0.6, 0.6, 0.62)))
+    m_lamp = scene.add_material(Material(LAMBERT, (0.0, 0.0, 0.0),
+                                         emission=(10.0, 9.5, 9.0)))
+    m_fence = scene.add_material(Material(
+        LAMBERT, (1.0, 1.0, 1.0), base_color_texture=tex, alpha_cutoff=0.5))
+    scene.add_material(Material())
+    quad = idx
+    for verts, mat, uv in ((ground, m_ground, None), (lamp, m_lamp, None),
+                           (fence, m_fence, uvs)):
+        scene.add_instance(Instance(scene.add_mesh(
+            Mesh(verts, quad, mat, uvs=uv))))
+    scene.camera = Camera.make(cam["position"], cam["look_at"], cam["up"],
+                               cam["vfov_deg"])
+    return scene
+
+
+def cli(argv) -> str:
+    """``python -m tpurt_torch`` in process; returns what it printed."""
+    import contextlib as cl
+    import io
+
+    from tpurt_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        rc = cli_main(argv)
+    out = buf.getvalue().strip()
+    log(f"[files] tpurt_torch {' '.join(argv)} → rc {rc}: "
+        + out.replace("\n", " | "))
+    if rc != 0:
+        raise AssertionError(f"tpurt_torch {argv[0]} exited {rc}")
+    return out
+
+
+def accum_of(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return z["accum"], int(z["n_samples"]), set(z.files)
+
+
+def hold_roundtrip(label, got, want):
+    """A file scene's render against its preset's: rtol and atol
+    ROUNDTRIP_TOL (tests/unit/test_export.py)."""
+    import numpy as np
+
+    (a, na, _), (b, nb, _) = got, want
+    if na != nb:
+        raise AssertionError(f"{label}: {na} spp against {nb}")
+    a, b = a / na, b / nb
+    err = np.abs(a - b)
+    bad = err > ROUNDTRIP_TOL + ROUNDTRIP_TOL * np.abs(b)
+    log(f"[files] {label}: max |diff| {float(err.max()):.3e}, "
+        f"{int(bad.sum())} of {bad.size} values past rtol/atol "
+        f"{ROUNDTRIP_TOL:g}; bit-equal {bool((a == b).all())}")
+    if bad.any():
+        raise AssertionError(f"{label}: render differs from the preset's")
+
+
+def native_check(bunny_obj: str) -> str:
+    """The host library: loaded or why not; its OBJ parse equal to the
+    Python parser on the bunny file, and its tree build holding the
+    tree contract beside the Python twin's on the bunny's packet leaves."""
+    import numpy as np
+
+    from tpurt_torch.bvh import cluster
+    from tpurt_torch.scene.obj import load_obj
+    from tpurt_torch.utils import native
+
+    lib = native.get_lib()
+    if lib is None:
+        log(f"[files] native host library not loaded, the Python twins "
+            f"carry the run: {native.build_error()}")
+        return "python"
+    log(f"[files] native host library loaded: {native.SO}")
+    a = load_obj(bunny_obj)
+    with environ({"TPURT_NO_NATIVE": "1"}):
+        b = load_obj(bunny_obj)
+    for f in ("vertices", "indices", "normals", "material_ids"):
+        x, y = getattr(a.meshes[0], f), getattr(b.meshes[0], f)
+        if x.tobytes() != y.tobytes():
+            raise AssertionError(f"native obj_parse: {f} differs from the "
+                                 "Python parser's")
+    rng = np.random.default_rng(0)
+    c = rng.normal(size=(4096, 3)).astype(np.float32)
+    h = rng.uniform(0.01, 0.2, (4096, 3)).astype(np.float32)
+    trees = (native.bvh_build(c - h, c + h),
+             tuple(cluster._median_split_tree(c - h, c + h)))
+    for t in trees:
+        lo, hi, first, count, skip = t
+        m = first.shape[0]
+        if not (m == 2 * 4096 - 1 and skip[0] == m
+                and sorted(first[count > 0].tolist()) == list(range(4096))
+                and (lo[0] == trees[1][0][0]).all()
+                and (hi[0] == trees[1][1][0]).all()):
+            raise AssertionError("native bvh_build breaks the tree contract")
+    log(f"[files] native obj_parse equals the Python parser on "
+        f"{a.num_triangles} bunny triangles; bvh_build and the Python twin "
+        "both hold the tree contract over 4096 boxes (same root box, every "
+        "item in one leaf; their leaf orders differ by design)")
+    return "native"
+
+
+def files_phase(device, launches: dict, bunny=(800, 600, 8),
+                sponza=(1920, 1080, 2), fence_subdivisions=6) -> None:
+    """Scene files, textures, cutout and the CLI on ``device`` (phase 5
+    of the module docstring), at the bunny and sponza presets' sizes
+    (width, height, spp) unless told smaller: the cut-out fence against
+    its geometric twin, the OBJ and GLB round trips, a hand-written
+    textured glTF, the sponza flythrough, checkpoint/resume and the
+    native host library. Adds the launches of its main paths (the
+    cut-out renders and the flythrough) to ``launches``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpurt_torch import kernels as kn
+    from tpurt_torch import render as rd
+    from tpurt_torch.render import framebuffer as fb
+    from tpurt_torch.render import render_scene
+    from tpurt_torch.render.png import read_png
+    from tpurt_torch.scene.device import to_device
+    from tpurt_torch.scene.gltf import load_gltf
+    from tpurt_torch.utils.config import get_config
+
+    on_card = torch.device(device).type == "cuda"
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1. cut-out and textured, at the bunny preset's size
+    for kind, (_, _, la) in cutout_twin_check(
+            device, *bunny, subdivisions=fence_subdivisions).items():
+        need = ("packet",) if kind == "bvh_packet" else ("entries",
+                                                         "tileloop")
+        for k in need:
+            if on_card and la.get(k, 0) <= 0:
+                raise AssertionError(f"fence {kind}: {k} never launched")
+        add(la)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    t = lambda name: os.path.join(tmp, name)
+    cpu = [] if on_card else ["--cpu"]
+    size = lambda w, h, spp: ["--width", str(w), "--height", str(h), "--spp",
+                              str(spp), "--spp-per-batch", str(spp),
+                              "--max-bounces", "2", *cpu]
+    s_wh, b_wh = sponza, bunny
+    sponza, bunny = size(*sponza), size(*bunny)
+
+    # 2. OBJ round trip
+    cli(["render", "--config", "bunny", *bunny, "--out", t("b.png"),
+         "--checkpoint", t("b.npz")])
+    cli(["export", "--config", "bunny", "--out", t("bunny.obj")])
+    cli(["render", "--config", t("bunny.obj"), *bunny, "--out",
+         t("b_obj.png"), "--checkpoint", t("b_obj.npz")])
+    hold_roundtrip("bunny.obj against the bunny preset",
+                   accum_of(t("b_obj.npz")), accum_of(t("b.npz")))
+
+    # 3. GLB round trip
+    cli(["render", "--config", "sponza", *sponza, "--out", t("s.png"),
+         "--checkpoint", t("s.npz")])
+    cli(["export", "--config", "sponza", "--out", t("sponza.glb")])
+    cli(["render", "--config", t("sponza.glb"), *sponza, "--out",
+         t("s_glb.png"), "--checkpoint", t("s_glb.npz")])
+    hold_roundtrip("sponza.glb against the sponza preset",
+                   accum_of(t("s_glb.npz")), accum_of(t("s.npz")))
+
+    # 4. a hand-written glTF with a texture
+    built = fence_gltf(t("fence.gltf"))
+    loaded = load_gltf(t("fence.gltf"))
+    a_ds, b_ds = to_device(loaded, "cpu"), to_device(built, "cpu")
+    for f in a_ds._fields:
+        x, y = getattr(a_ds, f), getattr(b_ds, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"fence.gltf: device array {f} differs "
+                                 "from the scene built in memory")
+    cfg = get_config("bunny", scene="custom", width=b_wh[0],
+                     height=b_wh[1], spp=b_wh[2], spp_per_batch=b_wh[2])
+    states = [render_scene(cfg, device=device, scene=s)[0]
+              for s in (loaded, built)]
+    same = bool(torch.equal(states[0].accum, states[1].accum))
+    log(f"[files] fence.gltf: {len(a_ds._fields)} device arrays equal to "
+        f"the scene built in memory; its render bit-equal {same}; image "
+        f"mean {float(fb.resolve(states[0]).mean()):.6f}")
+    if not same:
+        raise AssertionError("fence.gltf: render differs from the scene "
+                             "built in memory")
+
+    # 5. flythrough
+    frames_run = []  # (wall ms, batch stats) a frame
+    plain = rd.render_scene
+
+    def counted(*args, **kw):
+        t0 = time.perf_counter()
+        state, stats = plain(*args, **kw)  # ends with a device sync
+        frames_run.append(((time.perf_counter() - t0) * 1e3, stats))
+        return state, stats
+
+    builds = rd.scene_context_builds()
+    rd.render_scene = counted
+    try:
+        kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        line = cli(["animate", "--config", "sponza", *sponza, "--frames",
+                    "8", "--out-dir", t("frames")])
+        wall = time.perf_counter() - t0
+        la = kn.launch_counts()
+    finally:
+        rd.render_scene = plain
+    n_builds = rd.scene_context_builds() - builds
+    later = frames_run[1:]
+    rays = sum(float(st["counts_device"][0] + st["counts_device"][1])
+               for _, st in later)
+    later_ms = sum(ms for ms, _ in later)
+    batch_s = sum(st["elapsed_s"] for _, st in later)
+    frames = [read_png(t(f"frames/frame_{k:04d}.png")) for k in range(8)]
+    first_equal = bool(np.array_equal(frames[0], read_png(t("s.png"))))
+    distinct = all(not np.array_equal(frames[a], frames[b])
+                   for a in range(8) for b in range(a + 1, 8))
+    log(f"[files] flythrough sponza {s_wh[0]}x{s_wh[1]} x {s_wh[2]} spp "
+        f"x 8 frames: "
+        f"{wall:.4f} s for the command (scene load and PNG writes "
+        f"included); frame 0 {frames_run[0][0]:.3f} ms with the scene "
+        f"context's upload and accel build; frames 1-7 "
+        f"{later_ms / len(later):.3f} ms a frame "
+        f"({batch_s / len(later) * 1e3:.3f} ms of it the batch), "
+        f"{rays:.0f} rays traced (device counters) = "
+        f"{rays / (later_ms / 1e3) / 1e6:.4f} Mrays/s a frame, "
+        f"{rays / batch_s / 1e6:.4f} Mrays/s in the batches; scene "
+        f"contexts built {n_builds}; launches {la}; frame 0 bit-equal to "
+        f"render's {first_equal}; frames pairwise distinct {distinct}")
+    if n_builds != 1:
+        raise AssertionError(f"flythrough built {n_builds} scene contexts")
+    if not (first_equal and distinct):
+        raise AssertionError("flythrough frames wrong")
+    if "0 capped-frame" not in line:
+        raise AssertionError("flythrough: frames re-rendered for overflow")
+    for k in ("entries", "tileloop_tl_sc"):
+        if on_card and la.get(k, 0) <= 0:
+            raise AssertionError(f"flythrough: {k} never launched")
+    add(la)
+
+    # 6. resume
+    half = ["--config", "bunny", "--width", str(b_wh[0]), "--height",
+            str(b_wh[1]), "--spp-per-batch", "4", *cpu]
+    cli(["render", *half, "--spp", "4", "--out", t("r4.png"),
+         "--checkpoint", t("r4.npz")])
+    cli(["render", *half, "--resume", t("r4.npz"), "--spp", "8", "--out",
+         t("r8.png"), "--checkpoint", t("r8.npz")])
+    cli(["render", *half, "--spp", "8", "--out", t("s8.png"),
+         "--checkpoint", t("s8.npz")])
+    (r, nr, keys), (s, ns, _) = accum_of(t("r8.npz")), accum_of(t("s8.npz"))
+    log(f"[files] resume 4 → 8 spp: bit-equal to one 8-spp render "
+        f"{r.tobytes() == s.tobytes()} ({nr} / {ns} spp); checkpoint keys "
+        f"{sorted(keys)}")
+    if keys != CHECKPOINT_KEYS:
+        raise AssertionError(f"checkpoint keys {sorted(keys)}")
+    if nr != ns or r.tobytes() != s.tobytes():
+        raise AssertionError("resumed render differs from the straight one")
+
+    # 7. native
+    native_check(t("bunny.obj"))
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1327,10 +1871,13 @@ def main() -> int:
                                  "path's")
     del images
     golden_phase(device)
+
+    # 5. files and CLI
+    files_phase(device, launches)
     for k in report:
         k["launches"] = launches.get(k["name"], 0)
 
-    # 5. report
+    # 6. report
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -494,3 +494,17 @@ def test_tilegrid_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
     assert not bool(over)
     chip_smoke.check_k4_edges(mode, rays, acc.tri_rows, packed, any_hit,
                               **tl)
+
+
+@pytest.mark.cuda
+def test_cutout_twin_on_cuda(cuda_device):
+    """The cut-out fence over bunny_standin(3) against its geometric twin
+    on the card, 160×120 × 2 spp, through bvh_tile (the shade-record
+    alpha probe) and bvh_packet (the per-field probe): RMSE ≤ 1e-3, as
+    chip_smoke.cutout_twin_check holds them (it raises on a miss)."""
+    import chip_smoke
+
+    out = chip_smoke.cutout_twin_check(cuda_device, 160, 120, 2,
+                                       subdivisions=3)
+    assert out["bvh_tile"][2]["tileloop"] > 0
+    assert out["bvh_packet"][2]["packet"] > 0

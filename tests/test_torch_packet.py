@@ -2,9 +2,10 @@
 the walk's plain version (K5) against the reference's Pallas kernel in
 interpret mode, the intersector's closures, and a whole render.
 
-Tolerances: the accel tables byte-equal (against the reference's Python
-tree build, ``TPURT_NO_NATIVE=1``; the native tree build orders leaves
-differently); occlusion exact; slots equal on ≥ 99.9% of hit rays, and
+Tolerances: the accel tables byte-equal to the reference's, tree build
+for tree build (both packages build natively by default and in Python
+under ``TPURT_NO_NATIVE=1``; the two builds order leaves differently);
+the walks below use the Python trees; occlusion exact; slots equal on ≥ 99.9% of hit rays, and
 where they differ the two hits sit at an equal t (the reference's packet
 enters every leaf the packet's union reaches, the port's walk only the
 ray's own: a grazing box or an exact-t tie can pick the other triangle);
@@ -61,23 +62,24 @@ def _ref_accel(name, native: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _port_accel(name):
+def _port_accel(name, native: bool = False):
     ps = SCENES[name](port_proc)
-    return build_packet_accel(None, port_meta(ps), scene=ps)
+    if native:
+        return build_packet_accel(None, port_meta(ps), scene=ps)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPURT_NO_NATIVE", "1")
+        return build_packet_accel(None, port_meta(ps), scene=ps)
 
 
 @pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_packet_accel_matches_reference(name, native):
-    """The port's build against the reference's: every table byte-equal
-    to the Python tree build's; the row tables byte-equal whichever
-    tree build ran (they do not depend on the tree)."""
+    """The port's build against the reference's, tree build for tree
+    build: every table byte-equal."""
     want = _ref_accel(name, native)
-    got = _port_accel(name)
+    got = _port_accel(name, native)
     assert isinstance(got, PacketAccel) and got.n_nodes > 1
-    fields = got._fields if not native else ("tri_rows", "prim_tri",
-                                             "prim_inst")
-    for f in fields:
+    for f in got._fields:
         a, b = getattr(got, f), np.asarray(getattr(want, f))
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert a.tobytes() == b.tobytes(), f

@@ -8,10 +8,12 @@ rows into uniform leaves and builds a preorder median-split tree over the
 leaves with skip links: the acceleration structure of the ``bvh_packet``
 intersector (``kernels.packet``).
 
-The tree is built by the reference's Python path. The reference prefers
-its native tree build when ``native/build/libtpurt_native.so`` loads; that
-one splits with ``std::nth_element``, so its leaf order differs and the
-node arrays match only the reference built with ``TPURT_NO_NATIVE=1``.
+The tree is built natively when the host library loads
+(``utils.native.bvh_build``, ``std::nth_element`` splits), as the
+reference builds it, and otherwise by the Python twin
+``_median_split_tree``. The two order leaves differently; each is
+byte-equal to the reference's own build of the same kind, so the node
+arrays match the reference's with or without ``TPURT_NO_NATIVE=1``.
 ``tri_rows``, ``prim_tri`` and ``prim_inst`` do not depend on the tree.
 """
 
@@ -97,10 +99,22 @@ class _Tree(NamedTuple):
     skip: np.ndarray
 
 
+def _build_tree(bmin: np.ndarray, bmax: np.ndarray) -> _Tree:
+    """The preorder median-split tree over item boxes: the native build
+    when the host library loads, else the Python twin."""
+    from tpurt_torch.utils import native
+
+    built = native.bvh_build(bmin, bmax)
+    if built is not None:
+        return _Tree(*built)
+    return _median_split_tree(bmin, bmax)
+
+
 def _median_split_tree(bmin: np.ndarray, bmax: np.ndarray) -> _Tree:
-    """Preorder median-split BVH over items with skip links: each node
-    splits its items at the centroid median (stable argsort) along the
-    widest centroid axis; a single item is a leaf (count 1)."""
+    """Preorder median-split BVH over items with skip links (the Python
+    twin of the native build): each node splits its items at the
+    centroid median (stable argsort) along the widest centroid axis; a
+    single item is a leaf (count 1)."""
     n = bmin.shape[0]
     centro = 0.5 * (bmin + bmax)
     nb, nx, firsts, counts = [], [], [], []
@@ -240,7 +254,7 @@ def build_packet_accel(ds, meta, scene=None) -> PacketAccel:
     lbmin = pmin.reshape(n_leaves, lt, 3).min(1)
     lbmax = pmax.reshape(n_leaves, lt, 3).max(1)
 
-    tree = _median_split_tree(lbmin, lbmax)
+    tree = _build_tree(lbmin, lbmax)
     # leaf ids → row ranges
     first_rows = np.where(
         tree.count > 0, tree.first * leaf_rows, 0

@@ -85,3 +85,33 @@ def full_frame_pixels_tiled(width: int, height: int, tile: int = 32):
     return (torch.as_tensor(px[order].astype(np.int32)),
             torch.as_tensor(py[order].astype(np.int32)))
 
+
+
+def orbit_camera(center, radius, theta, phi, vfov_deg=45.0,
+                 up=(0, 1, 0)) -> Camera:
+    """Orbit camera of the flythrough paths: ``theta`` azimuth and
+    ``phi`` elevation in radians, in float32."""
+    center = torch.as_tensor(np.asarray(center, np.float32))
+    th = torch.tensor(theta, dtype=torch.float32)
+    ph = torch.tensor(phi, dtype=torch.float32)
+    offset = radius * torch.stack([torch.cos(ph) * torch.sin(th),
+                                   torch.sin(ph),
+                                   torch.cos(ph) * torch.cos(th)])
+    return Camera.make(center + offset, center, up, vfov_deg)
+
+
+def flythrough_path(waypoints, look_ats, n_frames: int, vfov_deg=45.0):
+    """Piecewise-linear camera path through ``waypoints`` looking at the
+    matching ``look_ats``, one Camera a frame (float32)."""
+    waypoints = torch.as_tensor(np.asarray(waypoints, np.float32))
+    look_ats = torch.as_tensor(np.asarray(look_ats, np.float32))
+    n_seg = waypoints.shape[0] - 1
+    cams = []
+    for f in range(n_frames):
+        s = f / max(n_frames - 1, 1) * n_seg
+        i = min(int(s), n_seg - 1)
+        a = s - i
+        pos = (1 - a) * waypoints[i] + a * waypoints[i + 1]
+        tgt = (1 - a) * look_ats[i] + a * look_ats[i + 1]
+        cams.append(Camera.make(pos, tgt, vfov_deg=vfov_deg))
+    return cams

@@ -10,8 +10,10 @@ Hit attributes come from the baked shade records of the pair-cluster
 accel (one row gather per hit): world-space records for the flat accel,
 object-space records plus a per-instance table for the two-level accel.
 The packet BVH has no records: its hits resolve per field from the
-DeviceScene (``resolve_hit``). Base-color textures and alpha cutout are
-not ported yet (ROADMAP §1 item 11).
+DeviceScene (``resolve_hit``). Base-color textures multiply the albedo
+(``sample_base_color``: nearest or bilinear, REPEAT wrap, the white
+fallback texel at pool row 0); ``sample_alpha`` is the alpha-cutout probe
+of ``render.integrator``.
 """
 
 from __future__ import annotations
@@ -54,9 +56,84 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
-def resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot) -> HitAttrs:
+def _texel_frame(tex_meta, tex_id, tu, tv):
+    """Pool row offset, size (f32 and i32) and the wrapped UV of each
+    lookup; ``tex_id`` < 0 reads texture 0's meta (the caller then reads
+    pool row 0)."""
+    tid = torch.clamp(tex_id, 0, tex_meta.shape[0] - 1).long()
+    meta = tex_meta[tid]  # (N, 4)
+    off = meta[:, 0].to(torch.int32)
+    w = torch.clamp_min(meta[:, 1], 1.0)
+    h = torch.clamp_min(meta[:, 2], 1.0)
+    return (off, w, h, w.to(torch.int32), h.to(torch.int32),
+            tu - torch.floor(tu), tv - torch.floor(tv))
+
+
+def _nearest_index(tex_meta, tex_id, tu, tv):
+    off, w, h, wi, hi, fu, fv = _texel_frame(tex_meta, tex_id, tu, tv)
+    tx = torch.minimum((fu * w).to(torch.int32), wi - 1)
+    ty = torch.minimum((fv * h).to(torch.int32), hi - 1)
+    idx = torch.where(tex_id >= 0, off + ty * wi + tx, 0)
+    return idx.long()
+
+
+def sample_base_color(tex_data, tex_meta, tex_id, tu, tv,
+                      bilinear: bool = False):
+    """Base-color fetch from the flattened texture pool.
+
+    ``tex_id`` < 0 (untextured) reads pool row 0, the white fallback, so
+    textured and untextured hits shade together. REPEAT wrapping; glTF's
+    v-down convention (image row 0 is v = 0). Nearest is one row gather;
+    ``bilinear`` (glTF's LINEAR) averages the four texels around the
+    sample point at half-texel-centered coordinates."""
+    if not bilinear:
+        return tex_data[_nearest_index(tex_meta, tex_id, tu, tv)]
+    off, w, h, wi, hi, fu, fv = _texel_frame(tex_meta, tex_id, tu, tv)
+    # texel centers at (i + 0.5) / w: the sample point in texel units
+    px = fu * w - 0.5
+    py = fv * h - 0.5
+    x0f = torch.floor(px)
+    y0f = torch.floor(py)
+    ax = (px - x0f)[:, None]
+    ay = (py - y0f)[:, None]
+
+    def fetch(xf, yf):
+        # REPEAT wrap per axis (once is enough: xf lies in [-1, w])
+        x = torch.where(xf < 0, xf + w, torch.where(xf >= w, xf - w, xf))
+        y = torch.where(yf < 0, yf + h, torch.where(yf >= h, yf - h, yf))
+        x = torch.minimum(torch.clamp_min(x.to(torch.int32), 0), wi - 1)
+        y = torch.minimum(torch.clamp_min(y.to(torch.int32), 0), hi - 1)
+        idx = torch.where(tex_id >= 0, off + y * wi + x, 0)
+        return tex_data[idx.long()]
+
+    c00 = fetch(x0f, y0f)
+    c10 = fetch(x0f + 1.0, y0f)
+    c01 = fetch(x0f, y0f + 1.0)
+    c11 = fetch(x0f + 1.0, y0f + 1.0)
+    top = c00 * (1.0 - ax) + c10 * ax
+    bot = c01 * (1.0 - ax) + c11 * ax
+    return top * (1.0 - ay) + bot * ay
+
+
+def sample_alpha(tex_alpha, tex_meta, tex_id, tu, tv):
+    """Base-color alpha (nearest) from the pool's alpha channel: the
+    alpha-cutout probe, one (N,) gather. ``tex_id`` < 0 reads row 0
+    (opaque 1.0)."""
+    return tex_alpha[_nearest_index(tex_meta, tex_id, tu, tv)]
+
+
+def _interp_uv(rec, w, u, v):
+    """Corner UVs of shade-record columns 22:28 interpolated at the hit."""
+    return (w[:, None] * rec[:, 22:24] + u[:, None] * rec[:, 24:26]
+            + v[:, None] * rec[:, 26:28])
+
+
+def resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot, tex_data=None,
+                       tex_meta=None, bilinear: bool = False) -> HitAttrs:
     """Hit attributes from ONE row gather of the world-space shade table
-    (``PairAccel.shade_rows``, layout in ``bvh.paircluster``)."""
+    (``PairAccel.shade_rows``, layout in ``bvh.paircluster``); a textured
+    pool (``tex_data``) multiplies the albedo by the base color at the
+    record's UVs (columns 22:28) and texture id (column 28)."""
     rec = shade_rows[torch.clamp_min(slot, 0).long()]  # (N, SHADE_LANES)
     w = 1.0 - u - v
     n_geom = normalize(rec[:, 0:3])
@@ -67,6 +144,12 @@ def resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot) -> HitAttrs:
     front_face = dot(n_geom, dirn) < 0.0
     n_geom = _where3(front_face, n_geom, -n_geom)
     n_shade = _where3(dot(n_shade, n_geom) >= 0.0, n_shade, -n_shade)
+    albedo = rec[:, 13:16]
+    if tex_data is not None:
+        uvi = _interp_uv(rec, w, u, v)
+        albedo = albedo * sample_base_color(
+            tex_data, tex_meta, rec[:, 28].to(torch.int32), uvi[:, 0],
+            uvi[:, 1], bilinear=bilinear)
     return HitAttrs(
         pos=pos,
         n_geom=n_geom,
@@ -74,7 +157,7 @@ def resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot) -> HitAttrs:
         front_face=front_face,
         mat_id=rec[:, 21].to(torch.int32),
         kind=rec[:, 12].to(torch.int32),
-        albedo=rec[:, 13:16],
+        albedo=albedo,
         emission=rec[:, 16:19],
         param0=rec[:, 19],
         param1=rec[:, 20],
@@ -88,11 +171,13 @@ def _mat3_vec(m, x):
 
 
 def resolve_hit_packed_tl(shade_rows, inst_table, org, dirn, t, u, v, slot,
-                          inst) -> HitAttrs:
+                          inst, tex_data=None, tex_meta=None,
+                          bilinear: bool = False) -> HitAttrs:
     """Two-level twin of resolve_hit_packed (PairAccelTL): the shade
     record is object space and shared across instances; the hit's
     instance selects a normal matrix and an optional material override
-    from the (I, 24) instance table (one row gather per hit)."""
+    from the (I, 24) instance table (one row gather per hit). A material
+    override carries no texture, so an overridden hit shades untextured."""
     rec = shade_rows[torch.clamp_min(slot, 0).long()]  # (N, SHADE_LANES)
     i_c = torch.clamp(inst, 0, inst_table.shape[0] - 1).long()
     feats = inst_table[i_c]  # (N, 24)
@@ -109,6 +194,13 @@ def resolve_hit_packed_tl(shade_rows, inst_table, org, dirn, t, u, v, slot,
     n_shade = _where3(dot(n_shade, n_geom) >= 0.0, n_shade, -n_shade)
     over = feats[:, 10:11] > 0.5
     sel = lambda a, b: torch.where(over, a, b)
+    albedo = sel(feats[:, 12:15], rec[:, 13:16])
+    if tex_data is not None:
+        uvi = _interp_uv(rec, w, u, v)
+        tex_id = torch.where(over[:, 0], -1, rec[:, 28].to(torch.int32))
+        albedo = albedo * sample_base_color(
+            tex_data, tex_meta, tex_id, uvi[:, 0], uvi[:, 1],
+            bilinear=bilinear)
     return HitAttrs(
         pos=pos,
         n_geom=n_geom,
@@ -116,18 +208,20 @@ def resolve_hit_packed_tl(shade_rows, inst_table, org, dirn, t, u, v, slot,
         front_face=front_face,
         mat_id=sel(feats[:, 20:21], rec[:, 21:22])[:, 0].to(torch.int32),
         kind=sel(feats[:, 11:12], rec[:, 12:13])[:, 0].to(torch.int32),
-        albedo=sel(feats[:, 12:15], rec[:, 13:16]),
+        albedo=albedo,
         emission=sel(feats[:, 15:18], rec[:, 16:19]),
         param0=sel(feats[:, 18:19], rec[:, 19:20])[:, 0],
         param1=sel(feats[:, 19:20], rec[:, 20:21])[:, 0],
     )
 
 
-def resolve_hit(ds, org, dirn, t, u, v, tri, inst) -> HitAttrs:
+def resolve_hit(ds, org, dirn, t, u, v, tri, inst,
+                bilinear: bool = False) -> HitAttrs:
     """Per-field resolver for accels without shade records (the packet
     BVH): gathers the triangle, its instance's normal matrix and
-    material override from the DeviceScene. Misses may pass any (clamped)
-    ids; callers gate on the hit mask."""
+    material override from the DeviceScene, and samples the base color
+    where the scene has textures. Misses may pass any (clamped) ids;
+    callers gate on the hit mask."""
     tri = torch.clamp(tri, 0, ds.tri_v0.shape[0] - 1).long()
     inst = torch.clamp(inst, 0, ds.inst_mesh.shape[0] - 1).long()
     w = 1.0 - u - v
@@ -146,6 +240,13 @@ def resolve_hit(ds, org, dirn, t, u, v, tri, inst) -> HitAttrs:
     mat_id = torch.where(override >= 0, override, ds.tri_mat[tri])
     mat_id = torch.clamp(mat_id, 0, ds.mat_kind.shape[0] - 1)
     m = mat_id.long()
+    albedo = ds.mat_albedo[m]
+    if ds.tex_data.shape[0] > 1:  # only the white fallback: no gather
+        uv = (w[:, None] * ds.tri_uv0[tri] + u[:, None] * ds.tri_uv1[tri]
+              + v[:, None] * ds.tri_uv2[tri])
+        albedo = albedo * sample_base_color(
+            ds.tex_data, ds.tex_meta, ds.mat_texture[m], uv[:, 0], uv[:, 1],
+            bilinear=bilinear)
     return HitAttrs(
         pos=pos,
         n_geom=n_geom,
@@ -153,37 +254,45 @@ def resolve_hit(ds, org, dirn, t, u, v, tri, inst) -> HitAttrs:
         front_face=front_face,
         mat_id=mat_id,
         kind=ds.mat_kind[m],
-        albedo=ds.mat_albedo[m],
+        albedo=albedo,
         emission=ds.mat_emission[m],
         param0=ds.mat_param0[m],
         param1=ds.mat_param1[m],
     )
 
 
-def make_resolver(ds, accel):
+def make_resolver(ds, accel, texture_filter: str = "nearest"):
     """The hit-attribute resolver for an accel: the two-level path
     (object-space records + instance table) for a PairAccelTL, the
     world-space record path for a PairAccel, and the per-field path for
-    an accel without shade records (PacketAccel)."""
+    an accel without shade records (PacketAccel). ``texture_filter``:
+    "nearest" (one row gather a hit) or "bilinear" (glTF's LINEAR, four).
+    A scene without textures holds only the white fallback texel and
+    skips the texel gather."""
     shade_rows = getattr(accel, "shade_rows", None)
     inst_table = getattr(accel, "inst_table", None)
-    if ds.tex_data.shape[0] > 1:
-        raise NotImplementedError(
-            "base-color textures are not ported yet (ROADMAP §1 item 11)")
+    textured = ds.tex_data.shape[0] > 1
+    tex_data = ds.tex_data if textured else None
+    tex_meta = ds.tex_meta if textured else None
+    bilinear = texture_filter == "bilinear"
 
     if shade_rows is not None and inst_table is not None:
         def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
             del tri
-            return resolve_hit_packed_tl(shade_rows, inst_table, org, dirn,
-                                         t, u, v, slot, inst)
+            return resolve_hit_packed_tl(
+                shade_rows, inst_table, org, dirn, t, u, v, slot, inst,
+                tex_data=tex_data, tex_meta=tex_meta, bilinear=bilinear)
     elif shade_rows is not None:
         def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
             del tri, inst
-            return resolve_hit_packed(shade_rows, org, dirn, t, u, v, slot)
+            return resolve_hit_packed(
+                shade_rows, org, dirn, t, u, v, slot, tex_data=tex_data,
+                tex_meta=tex_meta, bilinear=bilinear)
     else:
         def resolve(org, dirn, t, u, v, tri, inst, slot) -> HitAttrs:
             del slot
-            return resolve_hit(ds, org, dirn, t, u, v, tri, inst)
+            return resolve_hit(ds, org, dirn, t, u, v, tri, inst,
+                               bilinear=bilinear)
 
     return resolve
 

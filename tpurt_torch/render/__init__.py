@@ -9,6 +9,12 @@ a render whose trace reported a pair-budget overflow (the per-tile clamp
 or the pair-list capacities of ``bvh_tile``, or ``bvh_pair``'s pairs per
 ray) is re-rendered with doubled budgets, and ``BudgetOverflowError`` is
 raised when the retries run out.
+
+A one-entry scene-context cache keeps the host scene, its device arrays,
+its accel and the last staged renderer across calls, so the frames of a
+flythrough (one scene, a new camera each) upload and build once; the
+budget retries reuse the entry too (the budgets do not change the accel;
+a retry builds a renderer with the doubled budgets).
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ from tpurt_torch.scene.device import to_device, torch_device
 from tpurt_torch.scene.loader import load_scene
 from tpurt_torch.utils.config import RenderConfig, get_config
 
+# the one-entry scene-context cache (host scene, device arrays, accel),
+# and how many contexts it has built
+_SCENE_CACHE: dict = {}
+_CACHE_BUILDS = [0]
+
 
 class BudgetOverflowError(RuntimeError):
     """Pair-budget overflow persisted after all budget-doubling retries.
@@ -46,20 +57,20 @@ def _check_supported(config: RenderConfig) -> None:
     kind = config.resolved_intersector()
     if kind not in ("bvh_tile", "bvh_pair", "bvh_packet"):
         raise NotImplementedError(
-            f"intersector {kind!r} is not ported (ROADMAP §1 item 15: "
-            "alternates and oracles; bvh_tile, bvh_pair and bvh_packet "
-            "are)")
+            f"intersector {kind!r} is not ported (ROADMAP §1 item 6: "
+            "alternate pipelines and builders; bvh_tile, bvh_pair and "
+            "bvh_packet are)")
     pipeline = config.resolved_pipeline()
     if pipeline != "staged":
         raise NotImplementedError(
-            f"pipeline {pipeline!r} is not ported (ROADMAP §1 item 15: "
+            f"pipeline {pipeline!r} is not ported (ROADMAP §1 item 6: "
             "megakernel and wavefront pipelines)")
     if config.n_sample_shards * config.n_tile_shards > 1:
         raise NotImplementedError(
-            "multi-device sharding is not ported (ROADMAP §1 item 14)")
+            "multi-device sharding is not ported (ROADMAP §1 item 5)")
     if config.sorted_wave:
         raise NotImplementedError(
-            "the sorted-wave pipeline is not ported (ROADMAP §1 item 15)")
+            "the sorted-wave pipeline is not ported (ROADMAP §1 item 6)")
     if config.shading_mode not in ("full", "flat"):
         raise NotImplementedError(
             f"shading mode {config.shading_mode!r} is not a reference mode")
@@ -97,6 +108,46 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
     return build(ds, meta, scene=scene).to(device)
 
 
+def scene_context_builds() -> int:
+    """How many scene contexts (upload + accel build) this process has
+    made; a flythrough adds one for all its frames."""
+    return _CACHE_BUILDS[0]
+
+
+def _scene_context(config: RenderConfig, scene, device):
+    """The cached (scene, meta, DeviceScene, accel) for this scene and
+    config, built on a miss. Preset and file scenes key by name (their
+    host scene is cached too); in-memory scenes by identity, held by the
+    entry so no other scene can take its id, and by their table sizes so
+    one grown in place misses. The key holds what the accel depends on —
+    the intersector, the instancing and the native switch — and not the
+    pair budgets, so a budget retry reuses the entry. A miss drops the
+    old entry's tensors before it builds the new one."""
+    if scene is None:
+        scene_key = ("preset", config.scene)
+        scene = _SCENE_CACHE.get(("host_scene", config.scene))
+        if scene is None:
+            scene = load_scene(config.scene)
+    else:
+        scene_key = ("object", id(scene), len(scene.meshes),
+                     len(scene.instances), len(scene.materials),
+                     len(scene.textures))
+    key = (scene_key, str(device), config.resolved_intersector(),
+           config.instancing, os.environ.get("TPURT_NO_NATIVE") == "1")
+    ctx = _SCENE_CACHE.get(key)
+    if ctx is None or ctx["scene"] is not scene:
+        _SCENE_CACHE.clear()
+        meta = scene_meta(scene)
+        ds = to_device(scene, device)
+        accel = build_accel(config, ds, meta, scene=scene, device=device)
+        ctx = {"scene": scene, "meta": meta, "ds": ds, "accel": accel}
+        _SCENE_CACHE[key] = ctx
+        if scene_key[0] == "preset":
+            _SCENE_CACHE[("host_scene", config.scene)] = scene
+        _CACHE_BUILDS[0] += 1
+    return ctx
+
+
 def render_scene(
     config: RenderConfig,
     *,
@@ -105,6 +156,7 @@ def render_scene(
     camera: Optional[Camera] = None,
     state: Optional[fb.FrameState] = None,
     verbose: bool = False,
+    readback_stats: bool = True,
     max_budget_retries: int = 3,
 ):
     """Render ``config.spp`` samples progressively on ``device`` (the card
@@ -113,8 +165,17 @@ def render_scene(
     ``scene``: a host Scene (else built from ``config.scene``);
     ``camera`` overrides the scene camera; ``state`` resumes an earlier
     accumulation. Measured live-wave caps (``utils.autotune``) apply when
-    the config carries none; if a cap cut alive rays (stats
-    ``live_overflow``), the frame is re-rendered uncapped with a warning.
+    the config carries none and ``TPURT_LIVE_TRUNC`` is not "0"; if a cap
+    cut alive rays (stats ``live_overflow``), the frame is re-rendered
+    uncapped with a warning. Under ``TPURT_AUTOTUNE_WRITE=1`` an uncapped
+    render records its live and want counts (``autotune.record``).
+
+    ``readback_stats=False`` keeps the ray counters on the device: the
+    stats then carry them as ``counts_device`` (the layout of the staged
+    loop's counters) and report the analytic ray count
+    (``rays_estimated``); the overflow flags are not read, so neither
+    safety net runs — the caller reads ``counts_device`` later (animate's
+    deferred overflow accounting).
 
     Pair-budget safety, as in the reference: when a trace reports a
     pair-budget overflow (stats ``pair_overflow`` — clusters dropped,
@@ -131,26 +192,25 @@ def render_scene(
 
     device = torch_device(device)
     _check_supported(config)
-    if not config.live_caps:
-        caps = autotune.live_caps_for(config)
-        if caps:
-            config = dataclasses.replace(config, live_caps=caps)
-    if not config.shadow_caps and config.use_nee:
-        scaps = autotune.want_caps_for(config)
-        if scaps:
-            config = dataclasses.replace(config, shadow_caps=scaps)
-    if scene is None:
-        scene = load_scene(config.scene)
-    # the retries change budgets only: one scene upload and accel serve all
-    meta = scene_meta(scene)
-    ds = to_device(scene, device)
-    accel = build_accel(config, ds, meta, scene=scene, device=device)
+    if os.environ.get("TPURT_LIVE_TRUNC", "1") == "1":
+        if not config.live_caps:
+            caps = autotune.live_caps_for(config)
+            if caps:
+                config = dataclasses.replace(config, live_caps=caps)
+        if not config.shadow_caps and config.use_nee:
+            scaps = autotune.want_caps_for(config)
+            if scaps:
+                config = dataclasses.replace(config, shadow_caps=scaps)
+    ctx = _scene_context(config, scene, device)
     retries = 0
     while True:
-        out_state, stats = _render_scene_once(config, scene, camera, state,
-                                              verbose, device, meta, ds,
-                                              accel)
+        out_state, stats = _render_scene_once(config, ctx, camera, state,
+                                              verbose, device,
+                                              readback_stats)
         stats["budget_retries"] = retries
+        if (not config.live_caps
+                and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
+            autotune.record(config, stats)
         if stats["live_overflow"]:
             warnings.warn(
                 "live-wave cap truncated alive rays "
@@ -195,11 +255,11 @@ def render_scene(
                   f"per_ray={config.pairs_per_ray})")
 
 
-def _render_scene_once(config, scene, camera, state, verbose, device, meta,
-                       ds, accel):
+def _render_scene_once(config, ctx, camera, state, verbose, device,
+                       readback_stats=True):
     from tpurt_torch.render.staged import StagedRenderer
 
-    cam = camera if camera is not None else scene.camera
+    cam = camera if camera is not None else ctx["scene"].camera
     if cam is None:
         raise ValueError("scene has no camera")
     spp_fit = max(1, config.max_rays_per_batch
@@ -207,8 +267,18 @@ def _render_scene_once(config, scene, camera, state, verbose, device, meta,
     if config.spp_per_batch > spp_fit:
         config = dataclasses.replace(config, spp_per_batch=spp_fit)
 
-    renderer = StagedRenderer(ds, accel, meta=meta, config=config,
-                              device=device)
+    # the entry keeps its last renderer (pixel orders, intersectors) for
+    # the configs that differ only in what a batch does not read, under
+    # the same launch switches (the tile intersector reads them when built)
+    key = (dataclasses.replace(config, spp=0, seed=0, exposure=1.0),
+           os.environ.get("TPURT_PAIR_LOOP"),
+           os.environ.get("TPURT_ENTRY_ROWS"))
+    if ctx.get("renderer_key") != key:
+        ctx["renderer"] = StagedRenderer(ctx["ds"], ctx["accel"],
+                                         meta=ctx["meta"], config=config,
+                                         device=device)
+        ctx["renderer_key"] = key
+    renderer = ctx["renderer"]
     if state is None:
         state = fb.new_frame_state(config.width, config.height,
                                    config.seed, device=device)
@@ -232,10 +302,20 @@ def _render_scene_once(config, scene, camera, state, verbose, device, meta,
                   f"{time.perf_counter() - t0:.3f}s")
     sync()
     elapsed = time.perf_counter() - t0
-    # counters are read back after the timed section
     mb = config.max_bounces
-    rays = (total_rays.cpu().numpy() if total_rays is not None
-            else np.zeros(4 + 2 * (mb + 1)))
+    estimated = not readback_stats or total_rays is None
+    if not estimated:
+        # counters are read back after the timed section
+        rays = total_rays.cpu().numpy()
+    else:
+        # the analytic count: one closest ray per path vertex, and with
+        # NEE one shadow ray per vertex, for the samples accumulated
+        closest_ps = config.width * config.height * (1 + mb)
+        shadow_ps = (closest_ps if config.use_nee
+                     and config.shading_mode == "full" else 0)
+        done = int(state.n_samples)
+        rays = np.zeros(4)  # no live or want counts
+        rays[0], rays[1] = closest_ps * done, shadow_ps * done
     n_rays = float(rays[0] + rays[1])
     stats = {
         "elapsed_s": elapsed,
@@ -243,7 +323,7 @@ def _render_scene_once(config, scene, camera, state, verbose, device, meta,
         "rays_closest": float(rays[0]),
         "rays_shadow": float(rays[1]),
         "rays_traced": n_rays,
-        "rays_estimated": False,
+        "rays_estimated": estimated,
         "pair_overflow": bool(rays[2] > 0.0),
         "pair_overflow_events": float(rays[2]),
         "live_overflow": bool(rays[3] > 0.0),
@@ -253,6 +333,8 @@ def _render_scene_once(config, scene, camera, state, verbose, device, meta,
         "mrays_per_s": n_rays / max(elapsed, 1e-9) / 1e6,
         "device": str(device),
     }
+    if not readback_stats and total_rays is not None:
+        stats["counts_device"] = total_rays
     return state, stats
 
 

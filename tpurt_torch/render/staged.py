@@ -23,7 +23,12 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
     full_frame_pixels_tiled
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
-from tpurt_torch.render.integrator import SHADOW_EPS, make_intersectors
+from tpurt_torch.render.integrator import (
+    SHADOW_EPS,
+    make_cutout_closest,
+    make_intersectors,
+    make_occluder,
+)
 from tpurt_torch.render.intersectors import SceneMeta
 from tpurt_torch.utils.config import RenderConfig
 
@@ -85,20 +90,28 @@ class StagedRenderer:
             n_px).to(device)
 
         # one intersector per wave kind and cap (caps come from measured
-        # tables; alive rays past a cap are counted as live overflow)
-        self.closest = [make_intersectors(
-            ds, accel, meta=meta, config=config, wave="primary",
-            lean=True)[0]]
-        live_caps = _caps(config.live_caps, mb, n)
-        for b in range(1, mb + 1):
-            self.closest.append(make_intersectors(
+        # tables; alive rays past a cap are counted as live overflow).
+        # Alpha-tested scenes wrap each in its cut-out loop; opaque scenes
+        # keep the intersector itself.
+        def closest(wave, live_cap=0):
+            fn = make_intersectors(ds, accel, meta=meta, config=config,
+                                   wave=wave, lean=True,
+                                   live_cap=live_cap)[0]
+            return make_cutout_closest(ds, accel, fn, meta=meta)
+
+        def occluder(shadow_cap):
+            fn, any_hit = make_intersectors(
                 ds, accel, meta=meta, config=config, wave="bounce",
-                lean=True, live_cap=live_caps[b - 1])[0])
-        shadow_caps = _caps(config.shadow_caps, mb + 1, n)
-        self.occluders = [make_intersectors(
-            ds, accel, meta=meta, config=config, wave="bounce", lean=True,
-            shadow_live_cap=shadow_caps[b])[1] for b in range(mb + 1)]
-        self.resolver = materials.make_resolver(ds, accel)
+                lean=True, shadow_live_cap=shadow_cap)
+            return make_occluder(ds, accel, fn, any_hit, meta=meta)
+
+        live_caps = _caps(config.live_caps, mb, n)
+        self.closest = [closest("primary")] + [
+            closest("bounce", live_caps[b - 1]) for b in range(1, mb + 1)]
+        self.occluders = [occluder(cap) for cap in
+                          _caps(config.shadow_caps, mb + 1, n)]
+        self.resolver = materials.make_resolver(
+            ds, accel, texture_filter=config.texture_filter)
 
     def sampler(self, seed, sample0) -> PixelSampler:
         return PixelSampler.make(seed, sample0 + self.ds_r, self.pid)

@@ -389,6 +389,17 @@ def sponza_standin(column_segments: int = 48, column_rings: int = 24) -> Scene:
     return scene
 
 
+def sponza_flythrough(n_frames: int = 24):
+    """The animated camera path through the atrium; frame 0 is the
+    preset camera."""
+    from tpurt_torch.core.camera import flythrough_path
+
+    waypoints = [(-18, 2.2, 0.0), (-6, 2.8, 1.5), (6, 3.2, -1.5),
+                 (18, 2.4, 0.0)]
+    look_ats = [(20, 3, 0), (20, 3, 0), (20, 2, 0), (24, 2, 0)]
+    return flythrough_path(waypoints, look_ats, n_frames, vfov_deg=55.0)
+
+
 PRESET_BUILDERS = {
     "hello_triangle": hello_triangle,
     "cornell": lambda: cornell_box(False),
@@ -396,4 +407,27 @@ PRESET_BUILDERS = {
     "cornell_pt": lambda: cornell_box(True),
     "sponza": sponza_standin,
 }
+
+
+def flythrough_cameras(scene_name: str, n_frames: int):
+    """Camera path of ``python -m tpurt_torch animate``: sponza's scripted
+    atrium path; any other scene a 90° orbit from its own camera around
+    its target."""
+    if scene_name == "sponza":
+        return sponza_flythrough(n_frames)
+    from tpurt_torch.core.camera import orbit_camera
+    from tpurt_torch.scene.loader import load_scene
+
+    cam = load_scene(scene_name).camera
+    center = np.asarray(cam.look_at, np.float32)
+    offset = np.asarray(cam.position, np.float32) - center
+    radius = float(np.linalg.norm(offset))
+    theta0 = float(np.arctan2(offset[0], offset[2]))
+    phi0 = float(np.arcsin(np.clip(offset[1] / max(radius, 1e-6), -1, 1)))
+    return [
+        orbit_camera(center, radius,
+                     theta0 + 0.5 * np.pi * f / max(n_frames - 1, 1), phi0,
+                     vfov_deg=float(cam.vfov_deg))
+        for f in range(n_frames)
+    ]
 

@@ -69,17 +69,34 @@ Phases, in order; any failure exits nonzero and prints no result:
                 bunny_packet (intersector bvh_packet: K5), bunny_seg
                 (TPURT_ENTRY_ROWS=0: K3 + K1 pair segments, image
                 bit-equal to the bunny path's), bunny_grid and
-                cornell_grid (TPURT_PAIR_LOOP=0: K4, flat and all-pairs).
+                cornell_grid (TPURT_PAIR_LOOP=0: K4, flat and all-pairs),
+                and the alternate pipelines and builders: bunny_mega
+                (the megakernel), bunny_wavefront (the wavefront loop,
+                65,536 lanes), bunny_sorted (the sorted-wave loop),
+                bunny_morton (the tile intersector's Morton ray sort),
+                each K2 + K1 and held to the bunny path's image (RMSE ≤
+                1e-3, under 2% of pixels off by more than 1e-3),
+                sponza_mega (K2 + K1 two-level with superclusters),
+                cornell_brute (the megakernel through the brute force,
+                512×512 × 16 spp) and bunny_bvh (the megakernel through
+                the two-level LBVH walk), both plain torch: no kernel may
+                launch; then bunny_sorted with live caps too small, which
+                must re-render uncapped, bit-equal to its uncapped image.
                 Each runs once as warmup, then once timed with the launch
                 counters zeroed just before it and read just after, its
                 switches set around both and restored; its kernels must
                 have launched, it must end without overflow, and the image
                 must be finite and bit-equal to the warmup's (same seed).
+                Each path's Mrays/s is logged beside the card's
+                nvidia-smi name and power limit.
                 Then the golden fixtures on the card against
                 tests/golden/data/*.npz: bunny (also through bvh_pair,
-                bvh_packet, TPURT_ENTRY_ROWS=0 and TPURT_PAIR_LOOP=0),
-                hello_triangle and cornell (also through TPURT_PAIR_LOOP=0)
-                at RMSE ≤ 1e-3; sponza and cornell_pt at an energy bias ≤
+                bvh_packet, TPURT_ENTRY_ROWS=0, TPURT_PAIR_LOOP=0 and the
+                megakernel with the LBVH, the path that generated it),
+                hello_triangle and cornell (also through TPURT_PAIR_LOOP=0
+                and the megakernel with the brute force)
+                at RMSE ≤ 1e-3; sponza (also through the megakernel with
+                the LBVH) and cornell_pt at an energy bias ≤
                 1e-3 with their RMSE printed (sponza also under 2% of
                 pixels off by more than 1e-3; ROADMAP §3 says why their
                 RMSE is not the bar); and the bvh_pair bunny golden with
@@ -1139,7 +1156,29 @@ PATHS = {
                    ("tilegrid",)),
     "cornell_grid": ("cornell", 16, None, {}, dict(TPURT_PAIR_LOOP="0"),
                      ("tilegrid_allpairs",)),
+    # the alternate pipelines and builders; () = no kernel may launch
+    # (the brute force and the LBVH walk are plain torch: neither may
+    # quietly take the tile intersector)
+    "bunny_mega": ("bunny", 8, None, dict(pipeline="mega"), {},
+                   ("entries", "tileloop")),
+    "bunny_wavefront": ("bunny", 8, None, dict(pipeline="wavefront"), {},
+                        ("entries", "tileloop")),
+    "bunny_sorted": ("bunny", 8, None, dict(sorted_wave=True), {},
+                     ("entries", "tileloop")),
+    "bunny_morton": ("bunny", 8, None, dict(tile_ray_sort="morton",
+                                            tile_shadow_sort="morton"), {},
+                     ("entries", "tileloop")),
+    "sponza_mega": ("sponza", 2, None, dict(pipeline="mega"), {},
+                    ("entries", "tileloop_tl_sc")),
+    "cornell_brute": ("cornell", 16, None, dict(pipeline="mega",
+                                                intersector="brute"), {}, ()),
+    "bunny_bvh": ("bunny", 8, None, dict(pipeline="mega", intersector="bvh"),
+                  {}, ()),
 }
+# paths held to the staged bunny path's image (RMSE, share of pixels off)
+ALTERNATE_BUNNY = ("bunny_mega", "bunny_wavefront", "bunny_sorted",
+                   "bunny_morton")
+ALTERNATE_OFF = 0.02  # tests/test_torch_render.py
 # waves of one batch in the order the staged loop traces them (2 bounces)
 WAVE_NAMES = ("trace0", "occlude0", "trace1", "occlude1", "trace2",
               "occlude2")
@@ -1244,7 +1283,50 @@ def render_path(name: str, device):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched in the "
                                  "main-path render")
-    return launches, state.accum
+    if not kernels and any(launches.values()):
+        raise AssertionError(f"{name}: a plain-torch path launched "
+                             f"kernels {launches}")
+    return launches, state.accum, stats["mrays_per_s"]
+
+
+def compare_accums(label, got, want, spp: int):
+    """RMSE and share of pixels off by more than 1e-3 between two
+    accumulations of ``spp`` samples; raises past the tests' bars."""
+    import torch
+
+    d = (got - want).abs() / spp
+    rmse = float(torch.sqrt((d * d).mean()))
+    off = float((d > 1e-3).float().mean())
+    log(f"[render] {label} against the bunny path's image: RMSE "
+        f"{rmse:.3e}, {off:.4%} of pixels off by more than 1e-3")
+    if not (rmse <= GOLDEN_RMSE and off < ALTERNATE_OFF):
+        raise AssertionError(f"{label}: image differs from the bunny path's")
+
+
+def sorted_cap_check(device, uncapped):
+    """The sorted-wave bunny with live caps too small for its waves:
+    render_scene must warn, re-render uncapped and end bit-equal to the
+    uncapped sorted render."""
+    import warnings
+
+    import torch
+
+    from tpurt_torch.render import render_scene
+    from tpurt_torch.utils.config import get_config
+
+    config = get_config("bunny", spp=8, sorted_wave=True,
+                        live_caps=(1024, 1024))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, stats = render_scene(config, device=device)
+    loud = any("re-rendering uncapped" in str(w.message) for w in caught)
+    same = bool(torch.equal(state.accum, uncapped))
+    log(f"[render] bunny_sorted with live_caps (1024, 1024): loud uncapped "
+        f"re-render {loud}, live_overflow left {stats['live_overflow']}, "
+        f"bit-equal to the uncapped sorted render {same}")
+    if not (loud and same) or stats["live_overflow"]:
+        raise AssertionError("bunny_sorted: a cut live cap was not "
+                             "re-rendered uncapped")
 
 
 def golden_phase(device) -> None:
@@ -1268,7 +1350,14 @@ def golden_phase(device) -> None:
             # primary budget starts at the bounce waves' 384 a tile (the
             # default 48 cannot reach it in the 3 retries)
             ("bunny", dict(pairs_avg=384), dict(TPURT_PAIR_LOOP="0")),
-            ("cornell", {}, dict(TPURT_PAIR_LOOP="0"))):
+            ("cornell", {}, dict(TPURT_PAIR_LOOP="0")),
+            # the paths that generated the goldens: the megakernel with
+            # the two-level LBVH (> 128 triangles) or the brute force
+            ("bunny", dict(pipeline="mega", intersector="bvh"), {}),
+            ("hello_triangle", dict(pipeline="mega", intersector="brute"),
+             {}),
+            ("cornell", dict(pipeline="mega", intersector="brute"), {}),
+            ("sponza", dict(pipeline="mega", intersector="bvh"), {})):
         want = np.load(os.path.join(ROOT, "tests", "golden", "data",
                                     f"{name}.npz"))["image"]
         cfg = get_config(name, **dict(goldens[name], **over))
@@ -1855,11 +1944,13 @@ def main() -> int:
     report = check_kernels(device)
 
     # 4. render: each preset's main path, then the goldens
-    launches, images = {}, {}
+    launches, images, mrays = {}, {}, {}
     for name in PATHS:
-        counts, images[name] = render_path(name, device)
+        counts, images[name], mrays[name] = render_path(name, device)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    log(f"[render] Mrays/s a path ({smi}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mrays.items()))
     # the clamp at its last attempt keeps every cluster, and the pair
     # segments hold the entry rows' entries in the same order: both must
     # give the bunny path's image bit for bit
@@ -1869,6 +1960,9 @@ def main() -> int:
         if not same:
             raise AssertionError(f"{name}: image differs from the bunny "
                                  "path's")
+    for name in ALTERNATE_BUNNY:
+        compare_accums(name, images[name], images["bunny"], PATHS[name][1])
+    sorted_cap_check(device, images["bunny_sorted"])
     del images
     golden_phase(device)
 

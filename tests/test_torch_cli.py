@@ -49,11 +49,26 @@ def test_render_documented_intersectors(tmp_path, kind):
     ["--intersector", "brute"], ["--intersector", "bvh"]],
     ids=lambda f: "".join(f).lstrip("-"))
 def test_unported_flags_raise(tmp_path, flags):
+    """The multi-GPU flags raise, naming ROADMAP §1 item 5; the
+    alternate pipelines and intersectors (once unported, now ported)
+    render and animate a 32×32 frame on the CPU."""
+    multi_gpu = flags[0] in ("--multihost", "--sample-shards",
+                             "--tile-shards")
     for cmd in ("render", "animate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item [56]"):
-            main([cmd, "--config", "cornell", *TINY, *flags,
-                  "--out" if cmd == "render" else "--out-dir",
-                  str(tmp_path / "x")])
+        out = str(tmp_path / f"{cmd}_out")
+        argv = [cmd, "--config", "cornell", *TINY, *flags,
+                "--out" if cmd == "render" else "--out-dir", out]
+        if multi_gpu:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP §1 item 5"):
+                main(argv)
+            continue
+        if cmd == "animate":
+            argv += ["--frames", "1"]
+        assert main(argv) == 0
+        img = read_png(out if cmd == "render"
+                       else os.path.join(out, "frame_0000.png"))
+        assert img.shape == (32, 32, 3) and img.max() > 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

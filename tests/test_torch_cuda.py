@@ -508,3 +508,36 @@ def test_cutout_twin_on_cuda(cuda_device):
                                        subdivisions=3)
     assert out["bvh_tile"][2]["tileloop"] > 0
     assert out["bvh_packet"][2]["packet"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over,launched", [
+    (dict(pipeline="mega"), ("entries", "tileloop")),
+    (dict(pipeline="wavefront"), ("entries", "tileloop")),
+    (dict(sorted_wave=True), ("entries", "tileloop")),
+    (dict(pipeline="mega", intersector="bvh"), ())],
+    ids=["mega", "wavefront", "sorted", "bvh"])
+def test_alternate_paths_render_on_cuda_match_cpu(cuda_device, over,
+                                                  launched):
+    """The megakernel, the wavefront loop, the sorted-wave loop and the
+    two-level LBVH on the card: the tile paths launch K2 and K1, the
+    LBVH walk (plain torch) launches no kernel; each repeats bit for bit
+    and stays within RMSE 1e-3 of the CPU render."""
+    cfg = get_config("bunny", width=64, height=48, spp=2, spp_per_batch=2,
+                     max_bounces=2, **over)
+    scene = bunny_standin(subdivisions=3)
+    cpu, _ = render_scene(cfg, device="cpu", scene=scene)
+    kernels.reset_launch_counts()
+    gpu, stats = render_scene(cfg, device=cuda_device, scene=scene)
+    counts = kernels.launch_counts()
+    for k in launched:
+        assert counts[k] > 0, k
+    if not launched:
+        assert not any(counts.values())
+    again, _ = render_scene(cfg, device=cuda_device, scene=scene)
+    assert torch.equal(gpu.accum, again.accum)
+    a = fb.resolve(gpu).cpu().numpy()
+    b = fb.resolve(cpu).numpy()
+    assert np.isfinite(a).all()
+    assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
+    assert not stats["pair_overflow"] and not stats["live_overflow"]

@@ -126,13 +126,25 @@ def test_progressive_resume_matches_straight_through():
 
 
 def test_unported_paths_raise():
+    """Multi-device sharding raises, naming its ROADMAP item; the mega
+    and wavefront pipelines and the brute force (once unported) render
+    the bunny subset within RMSE 1e-3 of the staged loop's image."""
     scene = bunny_standin(subdivisions=3)
-    for kw in (dict(pipeline="mega"), dict(pipeline="wavefront"),
-               dict(intersector="brute"), dict(n_tile_shards=2),
-               dict(n_sample_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(n_tile_shards=2), dict(n_sample_shards=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
             render_scene(get_config("bunny", **dict(SMALL, **kw)),
                          device="cpu", scene=scene)
+    staged, _ = render_scene(get_config("bunny", **SMALL), device="cpu",
+                             scene=scene)
+    want = fb.resolve(staged).numpy()
+    for kw in (dict(pipeline="mega"), dict(pipeline="wavefront"),
+               dict(intersector="brute")):
+        state, stats = render_scene(get_config("bunny", **dict(SMALL, **kw)),
+                                    device="cpu", scene=scene)
+        img = fb.resolve(state).numpy()
+        assert img.shape == want.shape and np.isfinite(img).all()
+        assert _rmse(img, want) <= RMSE_TOL, kw
+        assert stats["rays_shadow"] > 0
     # ≤ 8 clusters take the all-pairs mode, which renders now
     state, stats = render_scene(get_config("cornell", width=32, height=32,
                                            spp=1, spp_per_batch=1),

@@ -15,10 +15,11 @@ and ``--profile DIR`` writes a ``torch.profiler`` trace there.
 ``animate`` renders a camera path (sponza's atrium flythrough, or an
 orbit) with one upload and accel build for all its frames.
 
-Flags of the reference whose paths are not ported raise
-NotImplementedError naming their ROADMAP item: ``--multihost``,
-``--sample-shards``/``--tile-shards`` above 1 (§1 item 5),
-``--pipeline mega|wavefront`` and ``--intersector brute|bvh`` (§1 item 6).
+``--pipeline`` picks the staged loop (``auto``), the megakernel or the
+wavefront loop, and ``--intersector`` the tile, pair, packet, LBVH
+(``bvh``) or brute-force intersector. The multi-GPU flags raise
+NotImplementedError naming their ROADMAP item: ``--multihost`` and
+``--sample-shards``/``--tile-shards`` above 1 (§1 item 5).
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ def _add_config_overrides(ap: argparse.ArgumentParser) -> None:
 
 
 def _check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a flag
-    whose path the port does not carry yet."""
+    """Raise NotImplementedError, naming its ROADMAP item, for a
+    multi-GPU flag (the port does not carry multi-device rendering)."""
     if getattr(args, "multihost", False):
         raise NotImplementedError(
             "--multihost is not ported (ROADMAP §1 item 5: multi-GPU)")
@@ -78,14 +79,6 @@ def _check_ported(args) -> None:
         if (getattr(args, dest, None) or 1) > 1:
             raise NotImplementedError(
                 f"{flag} is not ported (ROADMAP §1 item 5: multi-GPU)")
-    if getattr(args, "pipeline", None) in ("mega", "wavefront"):
-        raise NotImplementedError(
-            f"--pipeline {args.pipeline} is not ported (ROADMAP §1 item 6: "
-            "alternate pipelines and builders)")
-    if getattr(args, "intersector", None) in ("brute", "bvh"):
-        raise NotImplementedError(
-            f"--intersector {args.intersector} is not ported (ROADMAP §1 "
-            "item 6: alternate pipelines and builders)")
 
 
 def _build_config(args):
@@ -196,7 +189,7 @@ def cmd_animate(args) -> int:
             write_png(frame_png(idx), img.cpu().numpy())
             if counts is not None:
                 c = counts.cpu().numpy()
-                if c[3] > 0.0 or c[2] > 0.0:
+                if (c[2:4] > 0.0).any():  # pair or live-cap overflow
                     overflow_frames.append(idx)
         frames.clear()
 
@@ -258,7 +251,7 @@ def cmd_info(args) -> int:
 
     from tpurt_torch.kernels import cuda_build
     from tpurt_torch.utils import native
-    from tpurt_torch.utils.config import PRESETS
+    from tpurt_torch.utils.config import PRESETS, RenderConfig
 
     n = 0 if args.cpu or not torch.cuda.is_available() else \
         torch.cuda.device_count()
@@ -269,6 +262,11 @@ def cmd_info(args) -> int:
         print(f"  [cuda:{d}] {p.name}, {p.total_memory / (1 << 30):.1f} GiB, "
               f"sm_{p.major}{p.minor}, {p.multi_processor_count} SMs")
     print("presets:", ", ".join(sorted(PRESETS)))
+    auto = RenderConfig()
+    print(f"pipeline: auto → {auto.resolved_pipeline()} (also mega, "
+          "wavefront; staged with sorted_wave / TPURT_SORTED_WAVE=1)")
+    print(f"intersector: auto → {auto.resolved_intersector()} (also "
+          "bvh_pair, bvh_packet, bvh (two-level LBVH), brute)")
     lib = native.get_lib()
     print(f"native host library: "
           + (f"loaded ({native.SO})" if lib is not None else

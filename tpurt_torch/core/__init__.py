@@ -6,6 +6,7 @@ from tpurt_torch.core.vecmath import (
     refract,
     build_onb,
     intersect_tris,
+    ray_aabb,
 )
 from tpurt_torch.core.camera import Camera, camera_rays
 from tpurt_torch.core import sampling
@@ -16,6 +17,7 @@ __all__ = [
     "refract",
     "build_onb",
     "intersect_tris",
+    "ray_aabb",
     "Camera",
     "camera_rays",
     "sampling",

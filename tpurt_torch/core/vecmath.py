@@ -78,6 +78,16 @@ def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / d_safe
 
 
+def ray_aabb(org, inv_dir, bmin, bmax, t_min, t_max) -> torch.Tensor:
+    """Slab test: does the ray hit the box within [t_min, t_max]? All
+    arguments broadcast; ``inv_dir`` comes from :func:`safe_inv_dir`."""
+    t0 = (bmin - org) * inv_dir
+    t1 = (bmax - org) * inv_dir
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    return (t_near <= t_far) & (t_far >= t_min) & (t_near <= t_max)
+
+
 def intersect_tris(org, dirn, v0, v1, v2, t_min, t_max):
     """Möller–Trumbore ray/triangle intersection, double-sided; inputs
     broadcast over leading dims with a trailing 3-axis. Returns

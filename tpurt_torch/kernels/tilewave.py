@@ -68,7 +68,7 @@ import torch
 from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER, SC_SIZE
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG, DEAD_KEY, EPS_DENOM, \
-    _expand_bits7, _quantize
+    _expand_bits7, _quantize, _ray_sort_keys
 from tpurt_torch.render.intersectors import Hit
 
 TILE = 1024  # rays per tile (= threads per traversal block)
@@ -1387,8 +1387,12 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     stats[1].
 
     ``ray_sort``/``shadow_ray_sort``: "none" (keep the caller's order,
-    interval-frustum entries — primary waves) or "octant" (coherence sort
-    + exact entries — bounce and shadow waves). ``lean``: Hit.tri comes
+    interval-frustum entries — primary waves), "octant" (direction
+    octant major, origin Morton minor — bounce and shadow waves) or
+    "morton" (origin major, direction minor): a coherence sort, exact
+    entries, and the results restored to the caller's order; or "pre"
+    (the caller sorted the wave and reads the results in that order: no
+    sort and no restore, exact entries kept). ``lean``: Hit.tri comes
     back as −1 (and Hit.inst too on a flat accel; renderers shade through
     ``Hit.slot`` and, two-level, ``Hit.inst``).
     ``live_cap``/``shadow_live_cap``: live-wave truncation of the sorted
@@ -1397,9 +1401,8 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     so the caller can re-render uncapped."""
     del ds
     for s in (ray_sort, shadow_ray_sort):
-        if s not in ("none", "octant"):
-            raise NotImplementedError(
-                f"ray sort {s!r}: only 'none' and 'octant' are ported")
+        if s not in ("none", "morton", "octant", "pre"):
+            raise ValueError(f"ray sort {s!r}")
     use_loop = os.environ.get("TPURT_PAIR_LOOP", "1") == "1"
     n_clusters = int(accel.cluster_lo.shape[0])
     lo = accel.cluster_lo
@@ -1492,8 +1495,9 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
             tmv = torch.cat([tmv, torch.full((e,), -1.0, device=dev)])
             n_tiles += extra
         perm = None
-        if sort == "octant":
-            keys = _octant_sort_keys(org, dirn, tmv, lo_all, hi_all)
+        if sort in ("morton", "octant"):
+            keyfn = _ray_sort_keys if sort == "morton" else _octant_sort_keys
+            keys = keyfn(org, dirn, tmv, lo_all, hi_all)
             perm = torch.sort(keys, stable=True).indices
             org, dirn, tmv = org[perm], dirn[perm], tmv[perm]
         n_full = n_tiles * TILE
@@ -1508,7 +1512,7 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
                 n_tiles = kt
                 if one_launch:
                     chunk_tiles = kt
-        exact = perm is not None
+        exact = sort != "none"
         if not use_loop:
             out, n_pairs, overflow = _trace_grid(
                 org, dirn, tmv, lo, hi, tri_rows, chunk_tiles,

@@ -1,9 +1,14 @@
 """Render entry point — port of ``tpurt.render.render_scene``.
 
 ``render_scene(config)`` renders ``config.spp`` samples per pixel in
-progressive batches through the staged wave loop on the card (or on
-``device="cpu"``, where every kernel runs its plain version) and returns
-(FrameState, stats). It keeps the reference's safety nets: the uncapped
+progressive batches on the card (or on ``device="cpu"``, where every
+kernel runs its plain version) and returns (FrameState, stats). The
+config picks the pipeline — the staged wave loop (the port's default,
+and with ``sorted_wave`` or ``TPURT_SORTED_WAVE=1`` its sorted-wave
+variant), the megakernel (``"mega"``) or the wavefront loop — and the
+intersector: ``bvh_tile`` (the default), ``bvh_pair``, ``bvh_packet``,
+the two-level LBVH walk (``"bvh"``) or the dense brute force
+(``"brute"``). It keeps the reference's safety nets: the uncapped
 re-render when a live-wave cap cut alive rays, and the budget retries —
 a render whose trace reported a pair-budget overflow (the per-tile clamp
 or the pair-list capacities of ``bvh_tile``, or ``bvh_pair``'s pairs per
@@ -11,7 +16,7 @@ ray) is re-rendered with doubled budgets, and ``BudgetOverflowError`` is
 raised when the retries run out.
 
 A one-entry scene-context cache keeps the host scene, its device arrays,
-its accel and the last staged renderer across calls, so the frames of a
+its accel and the last renderer across calls, so the frames of a
 flythrough (one scene, a new camera each) upload and build once; the
 budget retries reuse the entry too (the budgets do not change the accel;
 a retry builds a renderer with the doubled budgets).
@@ -52,33 +57,30 @@ class BudgetOverflowError(RuntimeError):
 
 
 def _check_supported(config: RenderConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for every
-    config the port does not carry yet."""
-    kind = config.resolved_intersector()
-    if kind not in ("bvh_tile", "bvh_pair", "bvh_packet"):
-        raise NotImplementedError(
-            f"intersector {kind!r} is not ported (ROADMAP §1 item 6: "
-            "alternate pipelines and builders; bvh_tile, bvh_pair and "
-            "bvh_packet are)")
-    pipeline = config.resolved_pipeline()
-    if pipeline != "staged":
-        raise NotImplementedError(
-            f"pipeline {pipeline!r} is not ported (ROADMAP §1 item 6: "
-            "megakernel and wavefront pipelines)")
+    """Raise NotImplementedError, naming its ROADMAP item, for a config
+    the port does not carry: multi-device sharding. Raise ValueError for
+    a pipeline, intersector or shading mode the reference does not
+    have."""
     if config.n_sample_shards * config.n_tile_shards > 1:
         raise NotImplementedError(
             "multi-device sharding is not ported (ROADMAP §1 item 5)")
-    if config.sorted_wave:
-        raise NotImplementedError(
-            "the sorted-wave pipeline is not ported (ROADMAP §1 item 6)")
+    kind = config.resolved_intersector()
+    if kind not in ("brute", "bvh", "bvh_tile", "bvh_pair", "bvh_packet"):
+        raise ValueError(f"intersector {kind!r} is not a reference "
+                         "intersector")
+    if config.resolved_pipeline() not in ("staged", "mega", "wavefront"):
+        raise ValueError(f"pipeline {config.pipeline!r} is not a reference "
+                         "pipeline")
     if config.shading_mode not in ("full", "flat"):
-        raise NotImplementedError(
+        raise ValueError(
             f"shading mode {config.shading_mode!r} is not a reference mode")
 
 
 def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
     """The accel on ``device`` (the card unless the caller asks for the
-    CPU), picked as the reference picks it: the packet BVH for
+    CPU), picked as the reference picks it: none for ``brute`` (the
+    dense brute force), the two-level LBVH for ``bvh`` (built where
+    ``ds`` lives, with ``config.bvh_leaf_size``), the packet BVH for
     ``bvh_packet``; else the pair-cluster accel, for ``bvh_tile``
     two-level when the config asks for it, or on "auto" when instances
     reuse meshes at least 2× and the tables fit pair_meta's encoding;
@@ -88,9 +90,18 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
         INST_SHIFT, ROWS_PER_CLUSTER, TRIS_PER_CLUSTER, build_pair_accel,
         build_pair_accel_two_level,
     )
+    from tpurt_torch.bvh.two_level import build_scene_accel
 
     device = torch_device(device)
-    if config.resolved_intersector() == "bvh_packet":
+    kind = config.resolved_intersector()
+    if kind == "brute":
+        return None
+    if kind == "bvh":
+        # on the DeviceScene's device (the caller's: the scene context
+        # uploads it there first)
+        return build_scene_accel(ds, meta,
+                                 leaf_size=config.bvh_leaf_size).to(device)
+    if kind == "bvh_packet":
         return build_packet_accel(ds, meta, scene=scene).to(device)
 
     total_instanced = sum(meta.mesh_tri_ranges[m][1] for m in meta.inst_mesh)
@@ -100,7 +111,7 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
                 + len(meta.mesh_tri_ranges) * ROWS_PER_CLUSTER)
     # pair_meta packs a 20-bit row base and an 11-bit instance id
     fits = n_inst < (1 << (31 - INST_SHIFT)) and max_rows < (1 << INST_SHIFT)
-    use_tl = config.resolved_intersector() == "bvh_tile" and (
+    use_tl = kind == "bvh_tile" and (
         config.instancing == "two_level" or (
             config.instancing == "auto" and fits and n_inst > 1
             and total_instanced >= 2 * unique))
@@ -120,8 +131,9 @@ def _scene_context(config: RenderConfig, scene, device):
     host scene is cached too); in-memory scenes by identity, held by the
     entry so no other scene can take its id, and by their table sizes so
     one grown in place misses. The key holds what the accel depends on —
-    the intersector, the instancing and the native switch — and not the
-    pair budgets, so a budget retry reuses the entry. A miss drops the
+    the intersector, the instancing, the LBVH's leaf size and the native
+    switch — and not the pair budgets, so a budget retry reuses the
+    entry. A miss drops the
     old entry's tensors before it builds the new one."""
     if scene is None:
         scene_key = ("preset", config.scene)
@@ -133,7 +145,8 @@ def _scene_context(config: RenderConfig, scene, device):
                      len(scene.instances), len(scene.materials),
                      len(scene.textures))
     key = (scene_key, str(device), config.resolved_intersector(),
-           config.instancing, os.environ.get("TPURT_NO_NATIVE") == "1")
+           config.instancing, config.bvh_leaf_size,
+           os.environ.get("TPURT_NO_NATIVE") == "1")
     ctx = _SCENE_CACHE.get(key)
     if ctx is None or ctx["scene"] is not scene:
         _SCENE_CACHE.clear()
@@ -255,10 +268,30 @@ def render_scene(
                   f"per_ray={config.pairs_per_ray})")
 
 
+def _make_renderer(config, ctx, device):
+    """One batch of ``config``'s pipeline: ``renderer(cam, seed,
+    sample0) -> ((H, W, 3) radiance sum, counters)``."""
+    ds, accel, meta = ctx["ds"], ctx["accel"], ctx["meta"]
+    pipeline = config.resolved_pipeline()
+    if pipeline == "staged":
+        from tpurt_torch.render.staged import StagedRenderer
+
+        return StagedRenderer(ds, accel, meta=meta, config=config,
+                              device=device)
+    if pipeline == "mega":
+        from tpurt_torch.render.integrator import render_batch as batch
+    else:
+        from tpurt_torch.render.wavefront import \
+            render_batch_wavefront as batch
+
+    def renderer(cam, seed, sample0):
+        return batch(ds, cam, seed, sample0, accel, meta=meta, config=config)
+
+    return renderer
+
+
 def _render_scene_once(config, ctx, camera, state, verbose, device,
                        readback_stats=True):
-    from tpurt_torch.render.staged import StagedRenderer
-
     cam = camera if camera is not None else ctx["scene"].camera
     if cam is None:
         raise ValueError("scene has no camera")
@@ -269,14 +302,14 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
 
     # the entry keeps its last renderer (pixel orders, intersectors) for
     # the configs that differ only in what a batch does not read, under
-    # the same launch switches (the tile intersector reads them when built)
+    # the same switches (the tile intersector and the staged loop read
+    # them when built); the config holds the pipeline
     key = (dataclasses.replace(config, spp=0, seed=0, exposure=1.0),
            os.environ.get("TPURT_PAIR_LOOP"),
-           os.environ.get("TPURT_ENTRY_ROWS"))
+           os.environ.get("TPURT_ENTRY_ROWS"),
+           os.environ.get("TPURT_SORTED_WAVE"))
     if ctx.get("renderer_key") != key:
-        ctx["renderer"] = StagedRenderer(ctx["ds"], ctx["accel"],
-                                         meta=ctx["meta"], config=config,
-                                         device=device)
+        ctx["renderer"] = _make_renderer(config, ctx, device)
         ctx["renderer_key"] = key
     renderer = ctx["renderer"]
     if state is None:
@@ -326,7 +359,8 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
         "rays_estimated": estimated,
         "pair_overflow": bool(rays[2] > 0.0),
         "pair_overflow_events": float(rays[2]),
-        "live_overflow": bool(rays[3] > 0.0),
+        # the megakernel and wavefront loops count no live overflow
+        "live_overflow": bool(len(rays) > 3 and rays[3] > 0.0),
         # live-after-bounce-b then want-at-bounce-b
         "live_counts": [float(v) for v in rays[4:4 + mb + 1]],
         "want_counts": [float(v) for v in rays[4 + mb + 1:]],

@@ -1,21 +1,29 @@
-"""Intersector selection for the render loop — the ``bvh_tile``,
-``bvh_pair`` and ``bvh_packet`` branches of
-``tpurt.render.integrator.make_intersectors`` — and the alpha-cutout
-wrappers ``make_occluder`` and ``make_cutout_closest``.
+"""The megakernel integrator — port of ``tpurt.render.integrator`` —
+and intersector selection for every render loop.
 
-The reference's megakernel ``render_batch`` is not ported yet (ROADMAP
-§1 item 6); the port renders through the staged loop in
-``render.staged``.
+``render_batch`` traces one progressive batch over the full frame in
+32×32 screen-tile pixel order: every sample of the batch flattened into
+one wave (sample-major), the bounce loop unrolled with masked dead rays
+(``path_trace_rays``), each wave through the config's intersector with
+the "bounce" settings, primaries included, as in the reference. Also
+here: ``make_intersectors`` (brute force, the two-level LBVH walk and
+the ``bvh_tile``, ``bvh_pair`` and ``bvh_packet`` intersectors) and the
+alpha-cutout wrappers ``make_occluder`` and ``make_cutout_closest``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from tpurt_torch import materials
 from tpurt_torch.bvh.cluster import PacketAccel
-from tpurt_torch.core.vecmath import EPS_RAY
-from tpurt_torch.render.intersectors import Hit, SceneMeta
+from tpurt_torch.core.camera import Camera, camera_rays, \
+    full_frame_pixels_tiled
+from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
+from tpurt_torch.core.vecmath import EPS_RAY, dot
+from tpurt_torch.render.intersectors import Hit, SceneMeta, make_brute_force
 from tpurt_torch.utils.config import RenderConfig
 
 # shadow rays stop this fraction short of the sampled light point
@@ -30,18 +38,32 @@ ALPHA_OCCLUSION_ROUNDS = 4
 def make_intersectors(ds, accel, *, meta: SceneMeta, config: RenderConfig,
                       wave: str = "bounce", lean: bool = False,
                       live_cap: int = 0, shadow_live_cap: int = 0):
-    """Closest/any-hit pair for one wave kind. A PacketAccel takes the
-    packet intersector with ``config.packet_ray_sort`` for every wave (no
-    lean mode, budgets or live caps, as in the reference). ``bvh_pair``
-    takes the pair-wavefront intersector with ``config.pairs_per_ray``
-    for every wave (no sort, lean mode or live caps, as in the
-    reference). Otherwise the tile intersector: "primary" (camera waves —
-    the config's primary sort, screen-tile order by default, and
-    ``pairs_avg``) or "bounce" (incoherent waves — octant sort and
-    ``pairs_avg_bounce``), with the config's per-tile clamp, the shadow
-    budget ``pairs_avg_shadow`` and their maximum as the pair-segment
-    capacity. ``lean=True`` skips the Hit.tri/Hit.inst lookups
-    (renderers shade through Hit.slot)."""
+    """Closest/any-hit pair for one wave kind. No accel (None) takes the
+    dense brute force, a SceneAccel the two-level LBVH walk with
+    ``config.bvh_leaf_size``, a PacketAccel the packet intersector with
+    ``config.packet_ray_sort`` for every wave (no lean mode, budgets or
+    live caps, as in the reference). ``bvh_pair`` takes the
+    pair-wavefront intersector with ``config.pairs_per_ray`` for every
+    wave (no sort, lean mode or live caps, as in the reference).
+    Otherwise the tile intersector: "primary" (camera waves — the
+    config's primary sort, screen-tile order by default, and
+    ``pairs_avg``), "bounce" (incoherent waves — octant sort and
+    ``pairs_avg_bounce``) or "presorted" (the sorted-wave loop's waves,
+    already in coherence order and consumed in it: no forward or restore
+    sort for either trace, exact entries kept, ``pairs_avg_bounce``),
+    with the config's per-tile clamp, the shadow budget
+    ``pairs_avg_shadow`` and their maximum as the pair-segment capacity.
+    ``lean=True`` skips the Hit.tri/Hit.inst lookups (renderers shade
+    through Hit.slot)."""
+    from tpurt_torch.bvh.two_level import SceneAccel
+
+    if accel is None:
+        return make_brute_force(ds, meta)
+    if isinstance(accel, SceneAccel):
+        from tpurt_torch.bvh.two_level import make_two_level_intersector
+
+        return make_two_level_intersector(ds, accel,
+                                          leaf_size=config.bvh_leaf_size)
     if isinstance(accel, PacketAccel):
         from tpurt_torch.kernels.packet import make_packet_intersector
 
@@ -54,17 +76,19 @@ def make_intersectors(ds, accel, *, meta: SceneMeta, config: RenderConfig,
                                      pairs_per_ray=config.pairs_per_ray)
     from tpurt_torch.kernels.tilewave import make_tile_intersector
 
+    shadow_sort = config.tile_shadow_sort
     if wave == "primary":
         sort, avg = config.tile_primary_sort, config.pairs_avg
     elif wave == "bounce":
         sort, avg = config.tile_ray_sort, config.pairs_avg_bounce
+    elif wave == "presorted":
+        sort = shadow_sort = "pre"
+        avg = config.pairs_avg_bounce
     else:
-        raise NotImplementedError(
-            f"wave kind {wave!r}: the sorted-wave pipeline is not ported "
-            "yet (ROADMAP §1 item 6)")
+        raise ValueError(f"wave kind {wave!r}")
     return make_tile_intersector(
         ds, accel, pairs_per_tile=config.pairs_per_tile, pairs_avg=avg,
-        ray_sort=sort, shadow_ray_sort=config.tile_shadow_sort,
+        ray_sort=sort, shadow_ray_sort=shadow_sort,
         shadow_pairs_avg=config.pairs_avg_shadow,
         pairs_avg_cap=max(config.pairs_avg, config.pairs_avg_bounce,
                           config.pairs_avg_shadow),
@@ -243,3 +267,145 @@ def make_cutout_closest(ds, accel, closest, *, meta: SceneMeta):
     if hasattr(closest, "with_stats"):
         cutout_closest.with_stats = cutout_with_stats
     return cutout_closest
+
+
+def traced(fn, rays, org, dirn, tmax):
+    """One intersector call; where it reports stats, its pair-budget
+    overflow goes into ``rays[2]``, and a live-cap overflow (a third
+    entry) into ``rays[3]`` where the counters have that slot. The pair
+    intersector's any-hit reports none."""
+    if not hasattr(fn, "with_stats"):
+        return fn(org, dirn, 0.0, tmax)
+    out, tstats = fn.with_stats(org, dirn, 0.0, tmax)
+    rays[2] += tstats[1]
+    if tstats.shape[0] > 2 and rays.shape[0] > 3:
+        rays[3] += tstats[2]
+    return out
+
+
+def path_trace_rays(ds, closest, any_hit, org, dirn, sampler, *,
+                    max_bounces: int, use_nee: bool,
+                    shading_mode: str = "full", resolver=None):
+    """Trace a wave of camera rays to completion: ((N, 3) radiance,
+    (3,) f64 counters [closest rays, shadow rays, pair-budget overflow
+    events]). The bounce loop is unrolled with masked dead rays; flat
+    shading traces the camera rays only and returns the hit's albedo
+    (the background on a miss)."""
+    n = org.shape[0]
+    dev = org.device
+    rays = torch.zeros(3, dtype=torch.float64, device=dev)
+    if resolver is None:
+        def resolver(o, d, t, u, v, tri, inst, slot):
+            return materials.resolve_hit(ds, o, d, t, u, v, tri, inst)
+
+    if shading_mode == "flat":
+        rays[0] += n
+        hit = traced(closest, rays, org, dirn, math.inf)
+        attrs = resolver(org, dirn, hit.t, hit.u, hit.v, hit.tri, hit.inst,
+                         hit.slot)
+        return (torch.where(hit.valid[:, None], attrs.albedo,
+                            ds.background), rays)
+
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    allow_emission = torch.ones(n, dtype=torch.bool, device=dev)
+    for bounce in range(max_bounces + 1):
+        rays[0] += alive.sum()
+        # dead rays get t_max -1: no intersector walks them
+        hit = traced(closest, rays, org, dirn,
+                      torch.where(alive, math.inf, -1.0))
+        hit_valid = hit.valid & alive
+        # miss: the background, and the ray dies
+        radiance = radiance + torch.where((alive & ~hit.valid)[:, None],
+                                          throughput * ds.background, 0.0)
+        attrs = resolver(org, dirn, hit.t, hit.u, hit.v, hit.tri, hit.inst,
+                         hit.slot)
+        # emission on camera hits and after specular bounces; NEE covers
+        # it after diffuse ones
+        radiance = radiance + torch.where(
+            (hit_valid & allow_emission)[:, None],
+            throughput * attrs.emission, 0.0)
+        if use_nee:
+            shadow_org = materials.bounce_origin(
+                attrs, torch.ones(n, device=dev))
+            wi_l, dist_l, l_over_pdf, l_valid = materials.sample_light(
+                ds, shadow_org, sampler, bounce)
+            brdf_l = materials.eval_brdf(attrs, -dirn, wi_l)
+            cos_s = torch.clamp_min(dot(attrs.n_shade, wi_l), 0.0)
+            contrib = throughput * brdf_l * cos_s[:, None] * l_over_pdf
+            want = hit_valid & l_valid & (contrib.amax(dim=-1) > 0.0)
+            rays[1] += want.sum()
+            # the rays not wanted are dead (t_max -1) and carry finite
+            # values into the intersector, as the staged loop's do
+            occluded = traced(
+                any_hit, rays, torch.where(want[:, None], shadow_org, 0.0),
+                torch.where(want[:, None], wi_l, 1.0),
+                torch.where(want, dist_l * (1.0 - SHADOW_EPS), -1.0))
+            radiance = radiance + torch.where((want & ~occluded)[:, None],
+                                              contrib, 0.0)
+        bs = materials.sample_bounce(attrs, -dirn, sampler, bounce)
+        throughput = torch.where(hit_valid[:, None], throughput * bs.weight,
+                                 throughput)
+        # dead and missed rays carry inf hit points: keep them finite
+        org = torch.where(hit_valid[:, None],
+                          materials.bounce_origin(attrs, bs.offset_sign), 0.0)
+        dirn = torch.where(hit_valid[:, None], bs.wi, 1.0)
+        allow_emission = bs.is_specular | (not use_nee)
+        alive = (hit_valid & (bounce < max_bounces)
+                 & (throughput.amax(dim=-1) > 1e-6))
+    return radiance, rays
+
+
+def render_pixels(ds, cam: Camera, seed, sample0, accel, px, py, *,
+                  meta: SceneMeta, config: RenderConfig):
+    """Sum of ``config.spp_per_batch`` radiance samples for each pixel in
+    (px, py) with the global sample indices [sample0, sample0 + spp):
+    ((P, 3) f32, (3,) counters). The samples are flattened sample-major
+    into one wave, so the batch is one trace a path segment. The random
+    stream is a pure function of (seed, sample index, pixel id), so any
+    split of pixels or samples gives the same values: the unit a sharded
+    render would split."""
+    w, h = config.width, config.height
+    closest, any_hit = make_intersectors(ds, accel, meta=meta,
+                                         config=config, lean=True)
+    any_hit = make_occluder(ds, accel, closest, any_hit, meta=meta)
+    closest = make_cutout_closest(ds, accel, closest, meta=meta)
+    spp = config.spp_per_batch
+    n_px = px.shape[0]
+    px_r = px.repeat(spp)
+    py_r = py.repeat(spp)
+    pixel_id = py_r.to(torch.int64) * w + px_r.to(torch.int64)
+    sample_idx = sample0 + torch.arange(
+        spp, dtype=torch.int64, device=px.device).repeat_interleave(n_px)
+    sampler = PixelSampler.make(seed, sample_idx, pixel_id)
+    uj = sampler.u2(TAG_JITTER)
+    org, dirn = camera_rays(cam, px_r, py_r, w, h,
+                            jitter=(uj[..., 0], uj[..., 1]))
+    radiance, rays = path_trace_rays(
+        ds, closest, any_hit, org.contiguous(), dirn, sampler,
+        max_bounces=config.max_bounces, use_nee=config.use_nee,
+        shading_mode=config.shading_mode,
+        resolver=materials.make_resolver(
+            ds, accel, texture_filter=config.texture_filter))
+    return radiance.reshape(spp, n_px, 3).sum(dim=0), rays
+
+
+def render_batch(ds, cam: Camera, seed, sample0, accel=None, *,
+                 meta: SceneMeta, config: RenderConfig):
+    """One progressive batch over the full frame on the DeviceScene's
+    device: ((H, W, 3) f32 radiance sum, (3,) f64
+    counters [closest, shadow, pair-budget overflow events]). Pixels are
+    traced in 32×32 screen-tile order and their sums scattered back to
+    raster order by pixel id (the order never changes a value: the random
+    stream keys off the pixel id)."""
+    w, h = config.width, config.height
+    dev = ds.tri_v0.device
+    px, py = full_frame_pixels_tiled(w, h)
+    px, py = px.to(dev), py.to(dev)
+    total, counts = render_pixels(ds, cam, seed, sample0, accel, px, py,
+                                  meta=meta, config=config)
+    linear = py.to(torch.int64) * w + px.to(torch.int64)
+    img = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
+    img[linear] = total
+    return img.reshape(h, w, 3), counts

@@ -7,8 +7,8 @@ An intersector is a pair of functions built for a scene:
 
 Rays are world space; ``t`` is a world ray parameter (object-space
 directions are not renormalized under instance transforms). The dense
-brute-force pair here is the oracle the kernel tests hold the tile
-intersector against.
+brute-force pair here is the ``brute`` render path and the oracle the
+kernel tests hold the tile intersector against.
 """
 
 from __future__ import annotations

@@ -6,14 +6,28 @@ setup, occlusion trace → resolve (tile order → raster). Flat shading
 (hello_triangle) traces the primary wave only and resolves the albedo
 of each hit. The estimator is
 the reference's: same RNG tags, same masks, same event order, the same
-counter layout. The reference's per-stage executables, AOT cache, stage
-fusion variants and the sorted-wave pipeline exist to work around a TPU
-backend and are not carried.
+counter layout.
+
+The sorted-wave variant (``config.sorted_wave`` or ``TPURT_SORTED_WAVE``,
+on tile and pair accels, shading not flat) permutes the wave once a
+bounce, after its shading, into the octant + origin-Morton order of the
+next trace with dead rays last, and traces it as it lies
+(``wave="presorted"``: no forward or restore sort in the intersector).
+Each ray carries its pixel and sample ids, so its random stream and its
+pixel follow it; with a live cap the wave is cut after the sort (an
+alive ray past the cap counts as live overflow and ``render_scene``
+re-renders uncapped), and the resolve puts every ray back in its
+position before the per-pixel sums, which it then takes in the order of
+the default loop: the two loops' images are equal.
+
+The reference's per-stage executables, AOT cache and stage fusion
+variants exist to work around a TPU backend and are not carried.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -23,11 +37,13 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
     full_frame_pixels_tiled
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
+from tpurt_torch.kernels.tilewave import BIG, TILE, _octant_sort_keys
 from tpurt_torch.render.integrator import (
     SHADOW_EPS,
     make_cutout_closest,
     make_intersectors,
     make_occluder,
+    traced,
 )
 from tpurt_torch.render.intersectors import SceneMeta
 from tpurt_torch.utils.config import RenderConfig
@@ -42,6 +58,8 @@ class WaveState(NamedTuple):
     throughput: torch.Tensor  # (N, 3)
     alive: torch.Tensor  # (N,) bool
     allow_emission: torch.Tensor  # (N,) bool
+    pix: torch.Tensor  # (N,) int64 linear pixel id (the RNG pixel key)
+    sample: torch.Tensor  # (N,) int64 within-batch sample index
     # (NCOUNT,) f64 counters: [closest, shadow, pair_overflow,
     # live_overflow, live-after-bounce-0..MB, want-at-bounce-0..MB]
     rays: torch.Tensor
@@ -99,17 +117,44 @@ class StagedRenderer:
                                    live_cap=live_cap)[0]
             return make_cutout_closest(ds, accel, fn, meta=meta)
 
-        def occluder(shadow_cap):
+        def occluder(shadow_cap, wave="bounce"):
             fn, any_hit = make_intersectors(
-                ds, accel, meta=meta, config=config, wave="bounce",
+                ds, accel, meta=meta, config=config, wave=wave,
                 lean=True, shadow_live_cap=shadow_cap)
             return make_occluder(ds, accel, fn, any_hit, meta=meta)
 
-        live_caps = _caps(config.live_caps, mb, n)
-        self.closest = [closest("primary")] + [
-            closest("bounce", live_caps[b - 1]) for b in range(1, mb + 1)]
-        self.occluders = [occluder(cap) for cap in
-                          _caps(config.shadow_caps, mb + 1, n)]
+        self.sorted = (
+            hasattr(accel, "cluster_lo") and config.shading_mode != "flat"
+            and os.environ.get("TPURT_SORTED_WAVE",
+                               "1" if config.sorted_wave else "0") == "1")
+        if self.sorted:
+            # the sorted waves: the intersectors neither sort nor cut
+            # them; the loop cuts a sorted wave at its cap, rounded up to
+            # whole tiles, where that is below the wave's size
+            self.closest = [closest("primary")] + [closest("presorted")] * mb
+            self.occluders = [occluder(0, "presorted")] * (mb + 1)
+            self.sorted_caps = []
+            n_cur = n
+            for b in range(mb):
+                cap = int(config.live_caps[b]) if b < len(
+                    config.live_caps) else 0
+                cap = -(-cap // TILE) * TILE if cap > 0 else 0
+                cap = cap if cap < n_cur else 0
+                n_cur = cap or n_cur
+                self.sorted_caps.append(cap)
+            self.lo_all = accel.cluster_lo.amin(dim=0)
+            self.hi_all = accel.cluster_hi.amax(dim=0)
+            # raster pixel id → its position in the tile order
+            self.pos_of_pix = torch.empty(w * h, dtype=torch.int64,
+                                          device=device)
+            self.pos_of_pix[self.linear] = torch.arange(n_px, device=device)
+        else:
+            live_caps = _caps(config.live_caps, mb, n)
+            self.closest = [closest("primary")] + [
+                closest("bounce", live_caps[b - 1])
+                for b in range(1, mb + 1)]
+            self.occluders = [occluder(cap) for cap in
+                              _caps(config.shadow_caps, mb + 1, n)]
         self.resolver = materials.make_resolver(
             ds, accel, texture_filter=config.texture_filter)
 
@@ -129,6 +174,8 @@ class StagedRenderer:
             throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
             alive=torch.ones(n, dtype=torch.bool, device=dev),
             allow_emission=torch.ones(n, dtype=torch.bool, device=dev),
+            pix=self.pid,
+            sample=self.ds_r,
             rays=torch.zeros(self.ncount, dtype=torch.float64, device=dev),
         )
 
@@ -137,27 +184,14 @@ class StagedRenderer:
         rays = state.rays.clone()
         rays[0] += state.alive.sum()
         tmax = torch.where(state.alive, math.inf, -1.0)
-        hit = self._call(self.closest[bounce], rays, state.org, state.dirn,
-                         tmax)
+        hit = traced(self.closest[bounce], rays, state.org, state.dirn, tmax)
         return hit, state._replace(rays=rays)
-
-    @staticmethod
-    def _call(fn, rays, org, dirn, tmax):
-        """One intersector call; its stats go into the counters where it
-        reports them (pair overflow, and live overflow where there is a
-        third entry). The pair intersector's any-hit reports none."""
-        if not hasattr(fn, "with_stats"):
-            return fn(org, dirn, 0.0, tmax)
-        out, tstats = fn.with_stats(org, dirn, 0.0, tmax)
-        rays[2] += tstats[1]
-        if tstats.shape[0] > 2:
-            rays[3] += tstats[2]
-        return out
 
     def shade(self, state: WaveState, hit, sampler, bounce: int):
         """Miss/emission events, NEE shadow-ray setup, bounce sampling.
         Returns (next wave, shadow tuple or None)."""
-        c, ds, n = self.config, self.ds, self.n
+        c, ds = self.config, self.ds
+        n = state.org.shape[0]
         alive = state.alive
         hit_valid = hit.valid & alive
         radiance = state.radiance + torch.where(
@@ -205,6 +239,8 @@ class StagedRenderer:
             throughput=throughput,
             alive=alive,
             allow_emission=bs.is_specular | (not c.use_nee),
+            pix=state.pix,
+            sample=state.sample,
             rays=rays,
         )
         return new, shadow
@@ -217,8 +253,7 @@ class StagedRenderer:
         rays = state.rays.clone()
         rays[1] += n_want
         rays[self.want0 + bounce] += n_want
-        occluded = self._call(self.occluders[bounce], rays, s_org, s_dir,
-                              s_tmax)
+        occluded = traced(self.occluders[bounce], rays, s_org, s_dir, s_tmax)
         radiance = state.radiance + torch.where(
             (want & ~occluded)[:, None], contrib, 0.0)
         return state._replace(radiance=radiance, rays=rays)
@@ -241,12 +276,58 @@ class StagedRenderer:
         img[self.linear] = total
         return img.reshape(c.height, c.width, 3), state.rays
 
+    def sort_wave(self, state: WaveState) -> WaveState:
+        """The wave in the next trace's coherence order (octant, then
+        origin Morton; dead rays last), every per-ray field along."""
+        tmv = torch.where(state.alive, BIG, -1.0)
+        keys = _octant_sort_keys(state.org, state.dirn, tmv, self.lo_all,
+                                 self.hi_all)
+        perm = torch.sort(keys, stable=True).indices
+        return WaveState(*(f[perm] for f in state[:-1]), rays=state.rays)
+
+    def resolve_sorted(self, state: WaveState, tails):
+        """Every ray (the wave's and the cut tails' (radiance, pix,
+        sample)) back to its position by its carried ids, then the
+        positional resolve."""
+        rad = torch.cat([state.radiance] + [t[0] for t in tails])
+        pix = torch.cat([state.pix] + [t[1] for t in tails])
+        smp = torch.cat([state.sample] + [t[2] for t in tails])
+        radiance = torch.empty_like(rad)
+        radiance[smp * self.n_px + self.pos_of_pix[pix]] = rad
+        return self.resolve(state._replace(radiance=radiance))
+
+    def _sorted_batch(self, cam: Camera, seed: int, sample0: int):
+        mb = self.config.max_bounces
+        state = self.raygen(cam, seed, sample0)
+        tails = []
+        for bounce in range(mb + 1):
+            hit, state = self.trace(state, bounce)
+            # the stream of each ray's own (sample, pixel)
+            sampler = PixelSampler.make(seed, sample0 + state.sample,
+                                        state.pix)
+            state, shadow = self.shade(state, hit, sampler, bounce)
+            if shadow is not None:
+                state = self.occlude(state, shadow, bounce)
+            if bounce == mb:
+                break
+            state = self.sort_wave(state)
+            cap = self.sorted_caps[bounce]
+            if cap:
+                tails.append((state.radiance[cap:], state.pix[cap:],
+                              state.sample[cap:]))
+                rays = state.rays.clone()
+                rays[3] += state.alive[cap:].sum()
+                state = WaveState(*(f[:cap] for f in state[:-1]), rays=rays)
+        return self.resolve_sorted(state, tails)
+
     def __call__(self, cam: Camera, seed: int, sample0: int):
+        if self.config.shading_mode == "flat":
+            hit, state = self.trace(self.raygen(cam, seed, sample0), 0)
+            return self.resolve(self.flat_shade(state, hit))
+        if self.sorted:
+            return self._sorted_batch(cam, seed, sample0)
         sampler = self.sampler(seed, sample0)
         state = self.raygen(cam, seed, sample0)
-        if self.config.shading_mode == "flat":
-            hit, state = self.trace(state, 0)
-            return self.resolve(self.flat_shade(state, hit))
         for bounce in range(self.config.max_bounces + 1):
             hit, state = self.trace(state, bounce)
             state, shadow = self.shade(state, hit, sampler, bounce)

@@ -1,9 +1,9 @@
 """Config system — port of ``tpurt.utils.config``.
 
 One frozen dataclass ``RenderConfig`` with the reference's fields and
-defaults, and the per-demo presets of the benchmark ladder. Fields that
-select reference variants the port does not carry yet are kept so configs
-stay interchangeable; ``render_scene`` rejects values that would need them.
+defaults, and the per-demo presets of the benchmark ladder. The sharding
+fields are kept so configs stay interchangeable; ``render_scene`` rejects
+more than one shard (multi-device rendering is not ported).
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ class RenderConfig:
     seed: int = 0
     exposure: float = 1.0
     # "auto" | "brute" | "bvh" | "bvh_packet" | "bvh_pair" | "bvh_tile";
-    # the port implements bvh_tile ("auto" resolves to it), bvh_pair and
-    # bvh_packet
+    # "auto" resolves to bvh_tile, the path the port is built around (the
+    # reference's CPU default, brute or bvh, is reached by naming it)
     intersector: str = "auto"
     # tile-accel instancing: "auto" | "flatten" | "two_level"
     instancing: str = "auto"
@@ -53,7 +53,10 @@ class RenderConfig:
     tile_primary_sort: str = "none"
     tile_ray_sort: str = "octant"
     tile_shadow_sort: str = "octant"
-    # sorted-wave pipeline (reference variant, off by default)
+    # the staged loop's sorted-wave variant: one payload-through sort of
+    # the wave a bounce replaces the intersector's forward and restore
+    # sorts (tile and pair accels, flat shading excluded); the
+    # TPURT_SORTED_WAVE environment variable (0/1) overrides it
     sorted_wave: bool = False
     # live-wave truncation caps: entry b = max rays kept for the
     # bounce-(b+1) trace after its octant sort puts dead rays at the back
@@ -66,8 +69,8 @@ class RenderConfig:
     shadow_caps: tuple = ()
     bvh_leaf_size: int = 4
     packet_ray_sort: str = "none"
-    # "auto" | "mega" | "staged" | "wavefront"; the port runs the staged
-    # wave loop ("auto" resolves to it)
+    # "auto" | "mega" | "staged" | "wavefront"; "auto" resolves to the
+    # staged wave loop
     pipeline: str = "auto"
     wavefront_capacity: int = 1 << 16
     material_sort: bool = True

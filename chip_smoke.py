@@ -122,7 +122,28 @@ Phases, in order; any failure exits nonzero and prints no result:
                 renders and the flythrough run with the launch counters
                 zeroed just before and read just after, and their kernels
                 must have launched;
-  6. report   — the kernel JSON line, the nvidia-smi line, and last the
+  6. mesh     — worlds of the port's render sharding (tpurt_torch.parallel)
+                on cuda:0, each rank a child process of this script
+                (``chip_smoke.py --mesh-rank WORLD OUT``) joined over gloo
+                (ranks that share a card cannot use NCCL), with
+                OMP_NUM_THREADS=1, loading the kernel library phase 2
+                built (a child that compiles fails), under a wall-clock
+                limit that kills the whole world: bunny 800×600 × 8 spp
+                (spp_per_batch 4) on 2 sample × 2 tile shards through the
+                staged loop and bvh_tile (K2 + K1 flat); sponza 1920×1080
+                × 2 spp (spp_per_batch 1) on 2 × 2 (K2 + K1 two-level +
+                sc); cornell 512×512 × 16 spp (spp_per_batch 8) on 2 × 1
+                through the megakernel (render_batch_distributed, K1
+                all-pairs). Each rank renders once as warmup, then once
+                with its launch counters zeroed just before and read just
+                after; rank 0's accumulation must equal, bit for bit,
+                this process's render of the same sample window (two
+                batches), its closest and shadow counters equal, and its
+                warmup equal; every rank must exit 0 and launch the
+                world's kernels. The world's Mrays/s is logged beside the
+                single process's and the nvidia-smi line: ranks sharing
+                one card measure no scaling;
+  7. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -1917,6 +1938,200 @@ def files_phase(device, launches: dict, bunny=(800, 600, 8),
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the worlds of the mesh phase: (preset, config overrides, sample shards,
+# tile shards, the kernels every rank must launch)
+MESH_WORLDS = {
+    "bunny_2x2": ("bunny", dict(spp=8, spp_per_batch=4), 2, 2,
+                  ("entries", "tileloop")),
+    "sponza_2x2": ("sponza", dict(spp=2, spp_per_batch=1), 2, 2,
+                   ("entries", "tileloop_tl_sc")),
+    "cornell_mega_2x1": ("cornell", dict(spp=16, spp_per_batch=8,
+                                         pipeline="mega"), 2, 1,
+                         ("tileloop_allpairs",)),
+}
+MESH_LIMIT_S = 300  # wall clock of one world, start-up included
+
+
+def mesh_config(name: str, sharded: bool, size=None):
+    """The world's config (its preset's size unless ``size`` = (width,
+    height)), with its shards or without."""
+    from tpurt_torch.utils.config import get_config
+
+    preset, over, n_sample, n_tile, _ = MESH_WORLDS[name]
+    if sharded:
+        over = dict(over, n_sample_shards=n_sample, n_tile_shards=n_tile)
+    if size:
+        over = dict(over, width=size[0], height=size[1])
+    return get_config(preset, **over)
+
+
+def mesh_rank(name: str, out_dir: str, device: str, *size) -> int:
+    """One rank of a mesh-phase world (torchrun's environment): join the
+    world, render the sharded config twice (warmup, then timed with the
+    launch counters zeroed around it), and write what the parent checks:
+    rank{r}.json, and from rank 0 the two accumulations. On the card the
+    rank loads the kernel library and records whether it had to build it."""
+    import torch
+    import torch.distributed as dist
+
+    from tpurt_torch import kernels as kn
+    from tpurt_torch.kernels import cuda_build
+    from tpurt_torch.parallel import init_multihost
+    from tpurt_torch.render import render_scene
+
+    build_s = cuda_build.load().seconds if device == "cuda" else 0.0
+    rank, world = init_multihost(device=device)
+    config = mesh_config(name, sharded=True, size=[int(v) for v in size])
+    warm, _ = render_scene(config, device=device)
+    kn.reset_launch_counts()
+    state, stats = render_scene(config, device=device)
+    launches = kn.launch_counts()
+    if rank == 0:
+        torch.save({"accum": state.accum.cpu(), "warm": warm.accum.cpu()},
+                   os.path.join(out_dir, "accum.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": world,
+                   "backend": dist.get_backend(), "device": stats["device"],
+                   "build_s": build_s, "launches": launches,
+                   "spp": stats["spp"], "elapsed_s": stats["elapsed_s"],
+                   "rays_closest": stats["rays_closest"],
+                   "rays_shadow": stats["rays_shadow"],
+                   "mrays_per_s": stats["mrays_per_s"],
+                   "live_overflow": stats["live_overflow"],
+                   "pair_overflow": stats["pair_overflow"]}, f)
+    return 0
+
+
+def run_world(name: str, out_dir: str, device: str, size=()) -> list:
+    """The world's ranks as children on a free port; their rank{r}.json
+    records. Any nonzero exit, or the limit running out (the whole world
+    is then killed), raises."""
+    import signal
+    import socket
+
+    _, _, n_sample, n_tile, _ = MESH_WORLDS[name]
+    n = n_sample * n_tile
+    # the coordinator's port stays bound (SO_REUSEADDR, not listening)
+    # until the world ends: no other bind takes it before rank 0's store
+    held = socket.socket()
+    held.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    held.bind(("localhost", 0))
+    port = held.getsockname()[1]
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   OMP_NUM_THREADS="1")
+        logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", name,
+             out_dir, device, *map(str, size)], cwd=ROOT, env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT, start_new_session=True))
+    deadline = time.perf_counter() + MESH_LIMIT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        held.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        logs[r].seek(0)
+        log(f"[mesh] {name} rank {r} exit {procs[r].returncode}; its output "
+            "ends: " + logs[r].read()[-3000:].replace("\n", " | "))
+    for f in logs:
+        f.close()
+    if failed:
+        raise AssertionError(f"{name}: ranks {failed} failed or ran past "
+                             f"{MESH_LIMIT_S} s")
+    out = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_phase(device, launches: dict, smi: str, sizes=None) -> None:
+    """Phase 6 of the module docstring: each world against this process's
+    render of the same sample window on ``device`` (the ranks on its
+    type: cuda:0 from the card, CPU ranks for a dry run), at the presets'
+    sizes unless ``sizes`` maps a world to (width, height)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpurt_torch import kernels as kn
+    from tpurt_torch.render import render_scene
+
+    on_card = torch.device(device).type == "cuda"
+    for name, (_, _, n_sample, n_tile, need) in MESH_WORLDS.items():
+        size = (sizes or {}).get(name, ())
+        config = mesh_config(name, sharded=False, size=size)
+        warm, _ = render_scene(config, device=device)
+        kn.reset_launch_counts()
+        single, s_stats = render_scene(config, device=device)
+        s_launches = kn.launch_counts()
+        del warm
+        if on_card:
+            torch.cuda.empty_cache()
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        t0 = time.perf_counter()
+        ranks = run_world(name, out_dir, torch.device(device).type, size)
+        wall = time.perf_counter() - t0
+        got = torch.load(os.path.join(out_dir, "accum.pt"))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        want = single.accum.cpu()
+        r0 = ranks[0]
+        same = bool(torch.equal(got["accum"], want))
+        d = (got["accum"] - want).abs()
+        counts_same = (r0["rays_closest"] == s_stats["rays_closest"]
+                       and r0["rays_shadow"] == s_stats["rays_shadow"])
+        warm_same = bool(torch.equal(got["warm"], got["accum"]))
+        log(f"[mesh] {name}: {config.width}x{config.height} x {r0['spp']} "
+            f"spp on {n_sample} sample x {n_tile} tile shards, "
+            f"{len(ranks)} ranks on {sorted({r['device'] for r in ranks})}, "
+            f"backend {r0['backend']}; world {wall:.2f} s wall (start-up "
+            f"and scene builds included); rank builds "
+            f"{[r['build_s'] for r in ranks]} s; rank 0's timed render "
+            f"{r0['rays_closest'] + r0['rays_shadow']:.0f} rays in "
+            f"{r0['elapsed_s']:.4f} s = {r0['mrays_per_s']:.4f} Mrays/s "
+            f"(ranks {[round(r['mrays_per_s'], 4) for r in ranks]}) against "
+            f"the single process's {s_stats['rays_traced']:.0f} rays in "
+            f"{s_stats['elapsed_s']:.4f} s = {s_stats['mrays_per_s']:.4f} "
+            f"Mrays/s, {smi}; the ranks share one card, so this measures no "
+            f"scaling; launches by rank {[r['launches'] for r in ranks]}, "
+            f"single {s_launches}; rank 0's accumulation bit-equal to the "
+            f"single process's {same} ({int((d > 0).any(dim=-1).sum())} "
+            f"pixels differ, max |diff| {float(d.max()):.3e}); closest and "
+            f"shadow counters equal {counts_same} ({r0['rays_closest']:.0f} "
+            f"/ {r0['rays_shadow']:.0f} against "
+            f"{s_stats['rays_closest']:.0f} / {s_stats['rays_shadow']:.0f}); "
+            f"warmup bit-equal {warm_same}")
+        for r in ranks:
+            if r["build_s"] != 0.0:
+                raise AssertionError(f"{name}: rank {r['rank']} compiled the "
+                                     "kernels")
+            if r["pair_overflow"] or r["live_overflow"]:
+                raise AssertionError(f"{name}: rank {r['rank']} ended with "
+                                     "an overflow")
+            for k in need if on_card else ():
+                if r["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"{name}: rank {r['rank']} never "
+                                         f"launched {k}")
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if not (same and counts_same and warm_same):
+            raise AssertionError(f"{name}: the world's render differs from "
+                                 "the single process's")
+
+
 def main() -> int:
     import torch
 
@@ -1968,10 +2183,13 @@ def main() -> int:
 
     # 5. files and CLI
     files_phase(device, launches)
+
+    # 6. worlds of ranks on the card
+    mesh_phase(device, launches, smi)
     for k in report:
         k["launches"] = launches.get(k["name"], 0)
 
-    # 6. report
+    # 7. report
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1981,6 +2199,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:]))
     rc = main()
     print(f"[chip_smoke] {time.perf_counter() - T0:.1f} s", file=sys.stderr)
     sys.exit(rc)

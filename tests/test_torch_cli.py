@@ -11,6 +11,9 @@ an ulp apart (rtol 1e-6, ROADMAP §3 transcendentals).
 
 import dataclasses
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from tpurt_torch.scene import procedural as port_proc
 from tpurt_torch.utils.config import get_config
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--width", "32", "--height", "32", "--spp", "1", "--max-bounces",
         "0", "--cpu"]
 
@@ -49,23 +53,39 @@ def test_render_documented_intersectors(tmp_path, kind):
     ["--intersector", "brute"], ["--intersector", "bvh"]],
     ids=lambda f: "".join(f).lstrip("-"))
 def test_unported_flags_raise(tmp_path, flags):
-    """The multi-GPU flags raise, naming ROADMAP §1 item 5; the
-    alternate pipelines and intersectors (once unported, now ported)
-    render and animate a 32×32 frame on the CPU."""
-    multi_gpu = flags[0] in ("--multihost", "--sample-shards",
-                             "--tile-shards")
+    """The flags once unported: more shards than this process's world
+    (one rank) raise ValueError naming the world they need;
+    ``--multihost`` renders and animates as a world of one process (a
+    subprocess: a process group is process-global); the alternate
+    pipelines and intersectors render and animate a 32×32 frame on the
+    CPU."""
     for cmd in ("render", "animate"):
         out = str(tmp_path / f"{cmd}_out")
         argv = [cmd, "--config", "cornell", *TINY, *flags,
                 "--out" if cmd == "render" else "--out-dir", out]
-        if multi_gpu:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP §1 item 5"):
+        if flags[0] in ("--sample-shards", "--tile-shards"):
+            with pytest.raises(ValueError, match="needs a world of 2 ranks"):
                 main(argv)
             continue
         if cmd == "animate":
             argv += ["--frames", "1"]
-        assert main(argv) == 0
+        if flags[0] == "--multihost":
+            # the port stays bound (not listening) until the world is
+            # done, so no other bind takes it first
+            with socket.socket() as s:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("localhost", 0))
+                r = subprocess.run(
+                    [sys.executable, "-m", "tpurt_torch", *argv,
+                     "--coordinator", f"localhost:{s.getsockname()[1]}",
+                     "--num-processes", "1", "--process-id", "0"],
+                    env=dict(os.environ, OMP_NUM_THREADS="1",
+                             PYTHONPATH=REPO),
+                    capture_output=True, text=True, timeout=120)
+            assert r.returncode == 0, r.stderr[-3000:]
+            assert "multihost: process 0/1" in r.stdout
+        else:
+            assert main(argv) == 0
         img = read_png(out if cmd == "render"
                        else os.path.join(out, "frame_0000.png"))
         assert img.shape == (32, 32, 3) and img.max() > 0

@@ -126,12 +126,14 @@ def test_progressive_resume_matches_straight_through():
 
 
 def test_unported_paths_raise():
-    """Multi-device sharding raises, naming its ROADMAP item; the mega
-    and wavefront pipelines and the brute force (once unported) render
-    the bunny subset within RMSE 1e-3 of the staged loop's image."""
+    """The paths once unported: multi-device sharding in a single process
+    (a world of one rank) raises ValueError naming the world it needs
+    (tests/test_torch_multihost.py renders in such worlds); the mega and
+    wavefront pipelines and the brute force render the bunny subset
+    within RMSE 1e-3 of the staged loop's image."""
     scene = bunny_standin(subdivisions=3)
     for kw in (dict(n_tile_shards=2), dict(n_sample_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+        with pytest.raises(ValueError, match="needs a world of 2 ranks"):
             render_scene(get_config("bunny", **dict(SMALL, **kw)),
                          device="cpu", scene=scene)
     staged, _ = render_scene(get_config("bunny", **SMALL), device="cpu",

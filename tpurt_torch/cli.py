@@ -17,9 +17,20 @@ orbit) with one upload and accel build for all its frames.
 
 ``--pipeline`` picks the staged loop (``auto``), the megakernel or the
 wavefront loop, and ``--intersector`` the tile, pair, packet, LBVH
-(``bvh``) or brute-force intersector. The multi-GPU flags raise
-NotImplementedError naming their ROADMAP item: ``--multihost`` and
-``--sample-shards``/``--tile-shards`` above 1 (§1 item 5).
+(``bvh``) or brute-force intersector.
+
+Multi-GPU: ``--sample-shards S --tile-shards T`` render on a world of
+S·T processes, one a shard, each running the same command with
+``--multihost``, which joins it to the world before rendering — through
+torchrun's environment::
+
+  torchrun --nproc-per-node 4 -m tpurt_torch render --multihost \
+      --sample-shards 2 --tile-shards 2 --config bunny
+
+or through a coordinator that rank 0 serves (``--coordinator HOST:PORT
+--num-processes N --process-id I``, once for each rank I, on any host).
+Every rank renders its shard and ends with the whole frame; only rank 0
+writes files (the PNG, the checkpoint, the frames).
 """
 
 from __future__ import annotations
@@ -50,41 +61,30 @@ def _add_config_overrides(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--no-nee", action="store_true",
                     help="disable next-event estimation")
     ap.add_argument("--sample-shards", type=int, dest="n_sample_shards",
-                    help="sample-parallel axis size (not ported)")
+                    help="X2 sample-parallel axis size (ranks)")
     ap.add_argument("--tile-shards", type=int, dest="n_tile_shards",
-                    help="tile-parallel axis size (not ported)")
+                    help="X1 tile-parallel axis size (ranks)")
     ap.add_argument("--texture-filter", dest="texture_filter",
                     choices=["nearest", "bilinear"],
                     help="base-color sampling (bilinear = glTF LINEAR)")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (the kernels' plain versions)")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-process rendering (not ported)")
+                    help="join a torch.distributed world of ranks before "
+                         "rendering (torchrun's environment, or "
+                         "--coordinator)")
     ap.add_argument("--coordinator", default=None,
-                    help="coordinator address host:port (multihost)")
+                    help="coordinator address host:port, served by rank 0 "
+                         "(multihost; omit under torchrun)")
     ap.add_argument("--num-processes", type=int, dest="num_processes",
                     help="total process count (multihost)")
     ap.add_argument("--process-id", type=int, dest="process_id",
                     help="this process's index (multihost)")
 
 
-def _check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a
-    multi-GPU flag (the port does not carry multi-device rendering)."""
-    if getattr(args, "multihost", False):
-        raise NotImplementedError(
-            "--multihost is not ported (ROADMAP §1 item 5: multi-GPU)")
-    for flag, dest in (("--sample-shards", "n_sample_shards"),
-                       ("--tile-shards", "n_tile_shards")):
-        if (getattr(args, dest, None) or 1) > 1:
-            raise NotImplementedError(
-                f"{flag} is not ported (ROADMAP §1 item 5: multi-GPU)")
-
-
 def _build_config(args):
     from tpurt_torch.utils.config import get_config
 
-    _check_ported(args)
     overrides = {}
     for field in ("width", "height", "spp", "spp_per_batch", "max_bounces",
                   "seed", "exposure", "intersector", "pipeline",
@@ -99,6 +99,22 @@ def _build_config(args):
 
 def _device(args) -> str:
     return "cpu" if getattr(args, "cpu", False) else "cuda"
+
+
+def _join_world(args) -> int:
+    """Under ``--multihost``, join the world of ranks and print which
+    rank this process is; returns the rank (0 without ``--multihost``)."""
+    if not getattr(args, "multihost", False):
+        return 0
+    import torch.distributed as dist
+
+    from tpurt_torch.parallel import init_multihost
+
+    rank, world = init_multihost(args.coordinator, args.num_processes,
+                                 args.process_id, device=_device(args))
+    print(f"multihost: process {rank}/{world} (backend "
+          f"{dist.get_backend()})")
+    return rank
 
 
 @contextlib.contextmanager
@@ -122,6 +138,7 @@ def cmd_render(args) -> int:
     from tpurt_torch.render.checkpoint import load_checkpoint, save_checkpoint
     from tpurt_torch.render.png import write_png
 
+    rank = _join_world(args)
     config = _build_config(args)
     device = _device(args)
     state = None
@@ -141,10 +158,11 @@ def cmd_render(args) -> int:
     t0 = time.perf_counter()
     state, stats = render_scene(config, device=device, state=state,
                                 verbose=args.verbose)
-    if args.checkpoint:
-        save_checkpoint(args.checkpoint, state, config)
-        print(f"checkpoint → {args.checkpoint}")
-    write_png(args.out, fb.to_png_array(state, config.exposure))
+    if rank == 0:
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, state, config)
+            print(f"checkpoint → {args.checkpoint}")
+        write_png(args.out, fb.to_png_array(state, config.exposure))
     print(
         f"{args.out}: {config.width}x{config.height} {stats['spp']} spp, "
         f"{stats['mrays_per_s']:.2f} Mrays/s, "
@@ -161,18 +179,21 @@ def cmd_animate(args) -> int:
     or whose pair budget overflowed, is re-rendered uncapped and its PNG
     rewritten. ``--autotune`` renders uncapped, reads the counters every
     frame and records the largest live/want counts of the path in the
-    autotune cache."""
+    autotune cache. In a world of ranks every rank renders every frame
+    and only rank 0 writes them."""
     from tpurt_torch.render import framebuffer as fb
     from tpurt_torch.render import render_scene
     from tpurt_torch.render.png import write_png
     from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.scene.procedural import flythrough_cameras
 
+    rank = _join_world(args)
     config = _build_config(args)
     device = _device(args)
     scene = load_scene(config.scene)
     cams = flythrough_cameras(config.scene, args.frames)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if rank == 0:
+        os.makedirs(args.out_dir, exist_ok=True)
     autotune = getattr(args, "autotune", False)
     env = (dict(TPURT_LIVE_TRUNC="0", TPURT_AUTOTUNE_WRITE="1") if autotune
            else {})
@@ -186,7 +207,8 @@ def cmd_animate(args) -> int:
 
     def flush():
         for idx, img, counts in frames:
-            write_png(frame_png(idx), img.cpu().numpy())
+            if rank == 0:
+                write_png(frame_png(idx), img.cpu().numpy())
             if counts is not None:
                 c = counts.cpu().numpy()
                 if (c[2:4] > 0.0).any():  # pair or live-cap overflow
@@ -221,8 +243,9 @@ def cmd_animate(args) -> int:
             for idx in overflow_frames:
                 state, _ = render_scene(uncapped, device=device, scene=scene,
                                         camera=cams[idx])
-                write_png(frame_png(idx),
-                          fb.to_png_array(state, config.exposure))
+                if rank == 0:
+                    write_png(frame_png(idx),
+                              fb.to_png_array(state, config.exposure))
     print(
         f"{len(cams)} frames → {args.out_dir} in {elapsed:.1f}s "
         f"({elapsed / len(cams) * 1e3:.0f} ms/frame, "

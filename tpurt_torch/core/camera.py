@@ -65,6 +65,14 @@ def camera_rays(cam: Camera, px, py, width: int, height: int, jitter=None):
     return org, d
 
 
+def full_frame_pixels(width: int, height: int):
+    """(H*W,) int32 pixel column/row indices in row-major order."""
+    py, px = torch.meshgrid(torch.arange(height, dtype=torch.int32),
+                            torch.arange(width, dtype=torch.int32),
+                            indexing="ij")
+    return px.reshape(-1), py.reshape(-1)
+
+
 def full_frame_pixels_tiled(width: int, height: int, tile: int = 32):
     """(H*W,) int32 pixel column/row indices in ``tile``×``tile``
     screen-tile order: consecutive runs of tile² pixels form square screen

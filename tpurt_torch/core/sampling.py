@@ -1,7 +1,8 @@
 """Monte-Carlo sampling warps — port of ``tpurt.core.sampling``.
 
-The reference's ``batch_key``/``uniform2`` wrap ``jax.random`` and have no
-caller; the renderer draws all randomness from ``core.prng``.
+The reference's ``batch_key``/``uniform2`` wrap ``jax.random``'s
+threefry and have no caller (ROADMAP §1); the renderer draws all
+randomness from ``core.prng``.
 """
 
 from __future__ import annotations
@@ -37,3 +38,10 @@ def to_world(d_local, t, b, n):
     return d_local[..., 0:1] * t + d_local[..., 1:2] * b \
         + d_local[..., 2:3] * n
 
+
+
+def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
+    """MIS power heuristic (beta = 2), for weighting NEE against BSDF
+    sampling."""
+    a2 = pdf_a * pdf_a
+    return a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-20)

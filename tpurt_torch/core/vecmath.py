@@ -106,3 +106,19 @@ def intersect_tris(org, dirn, v0, v1, v2, t_min, t_max):
     hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > t_min) & (t < t_max))
     return t, u, v, hit
+
+
+def closest_hit_brute_force(org, dirn, v0, v1, v2, t_min, t_max):
+    """Every ray against every triangle, the closest hit kept (the "no
+    BVH" oracle). org/dirn: (R, 3); v0/v1/v2: (T, 3); t_min/t_max: (R,).
+    Returns ``(t, u, v, tri_id, hit)``, each (R,); a ray that hits nothing
+    has t = inf and tri_id 0, and an exact-t tie keeps the lower id."""
+    t, u, v, hit = intersect_tris(org[:, None, :], dirn[:, None, :],
+                                  v0[None, :, :], v1[None, :, :],
+                                  v2[None, :, :], t_min[:, None],
+                                  t_max[:, None])
+    t_masked = torch.where(hit, t, torch.inf)
+    tri_id = torch.argmin(t_masked, dim=1)
+    r = torch.arange(org.shape[0], device=org.device)
+    return (t_masked[r, tri_id], u[r, tri_id], v[r, tri_id], tri_id,
+            hit.any(dim=1))

@@ -15,6 +15,17 @@ or the pair-list capacities of ``bvh_tile``, or ``bvh_pair``'s pairs per
 ray) is re-rendered with doubled budgets, and ``BudgetOverflowError`` is
 raised when the retries run out.
 
+A config with more than one sample or tile shard renders on a
+("sample", "tile") mesh of ranks (``tpurt_torch.parallel``): a world of
+``n_sample_shards * n_tile_shards`` processes, each calling
+``render_scene`` with the same config. The staged loop traces the rank's
+shard (``StagedRenderer(mesh=...)``); the megakernel and the wavefront
+loop run the megakernel's shards (``render_batch_distributed``), as the
+reference does. A batch then adds ``spp_per_batch * n_sample_shards``
+samples, and every rank ends it with the whole frame and the world's
+counters, so the re-renders and retries below are taken by every rank
+alike.
+
 A one-entry scene-context cache keeps the host scene, its device arrays,
 its accel and the last renderer across calls, so the frames of a
 flythrough (one scene, a new camera each) upload and build once; the
@@ -57,13 +68,8 @@ class BudgetOverflowError(RuntimeError):
 
 
 def _check_supported(config: RenderConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a config
-    the port does not carry: multi-device sharding. Raise ValueError for
-    a pipeline, intersector or shading mode the reference does not
-    have."""
-    if config.n_sample_shards * config.n_tile_shards > 1:
-        raise NotImplementedError(
-            "multi-device sharding is not ported (ROADMAP §1 item 5)")
+    """Raise ValueError for a pipeline, intersector or shading mode the
+    reference does not have."""
     kind = config.resolved_intersector()
     if kind not in ("brute", "bvh", "bvh_tile", "bvh_pair", "bvh_packet"):
         raise ValueError(f"intersector {kind!r} is not a reference "
@@ -125,16 +131,16 @@ def scene_context_builds() -> int:
     return _CACHE_BUILDS[0]
 
 
-def _scene_context(config: RenderConfig, scene, device):
+def _scene_context(config: RenderConfig, scene, device, mesh=None):
     """The cached (scene, meta, DeviceScene, accel) for this scene and
     config, built on a miss. Preset and file scenes key by name (their
     host scene is cached too); in-memory scenes by identity, held by the
     entry so no other scene can take its id, and by their table sizes so
     one grown in place misses. The key holds what the accel depends on —
     the intersector, the instancing, the LBVH's leaf size and the native
-    switch — and not the pair budgets, so a budget retry reuses the
-    entry. A miss drops the
-    old entry's tensors before it builds the new one."""
+    switch — and the mesh's shape, and not the pair budgets, so a budget
+    retry reuses the entry. A miss drops the old entry's tensors before it
+    builds the new one."""
     if scene is None:
         scene_key = ("preset", config.scene)
         scene = _SCENE_CACHE.get(("host_scene", config.scene))
@@ -146,7 +152,7 @@ def _scene_context(config: RenderConfig, scene, device):
                      len(scene.textures))
     key = (scene_key, str(device), config.resolved_intersector(),
            config.instancing, config.bvh_leaf_size,
-           os.environ.get("TPURT_NO_NATIVE") == "1")
+           os.environ.get("TPURT_NO_NATIVE") == "1", _mesh_key(mesh))
     ctx = _SCENE_CACHE.get(key)
     if ctx is None or ctx["scene"] is not scene:
         _SCENE_CACHE.clear()
@@ -205,6 +211,13 @@ def render_scene(
 
     device = torch_device(device)
     _check_supported(config)
+    mesh = None
+    if config.n_sample_shards * config.n_tile_shards > 1:
+        from tpurt_torch.parallel.mesh import make_render_mesh
+
+        mesh = make_render_mesh(config.n_sample_shards,
+                                config.n_tile_shards, device=device)
+        device = mesh.device
     if os.environ.get("TPURT_LIVE_TRUNC", "1") == "1":
         if not config.live_caps:
             caps = autotune.live_caps_for(config)
@@ -214,12 +227,12 @@ def render_scene(
             scaps = autotune.want_caps_for(config)
             if scaps:
                 config = dataclasses.replace(config, shadow_caps=scaps)
-    ctx = _scene_context(config, scene, device)
+    ctx = _scene_context(config, scene, device, mesh)
     retries = 0
     while True:
         out_state, stats = _render_scene_once(config, ctx, camera, state,
                                               verbose, device,
-                                              readback_stats)
+                                              readback_stats, mesh)
         stats["budget_retries"] = retries
         if (not config.live_caps
                 and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
@@ -268,16 +281,35 @@ def render_scene(
                   f"per_ray={config.pairs_per_ray})")
 
 
-def _make_renderer(config, ctx, device):
+def _mesh_key(mesh):
+    return None if mesh is None else (mesh.n_sample, mesh.n_tile, mesh.rank)
+
+
+def _make_renderer(config, ctx, device, mesh=None):
     """One batch of ``config``'s pipeline: ``renderer(cam, seed,
-    sample0) -> ((H, W, 3) radiance sum, counters)``."""
+    sample0) -> ((H, W, 3) radiance sum, counters)``; on a mesh, the
+    world's batch (the megakernel's shards for the mega and wavefront
+    pipelines, as in the reference), cropped to the frame."""
     ds, accel, meta = ctx["ds"], ctx["accel"], ctx["meta"]
     pipeline = config.resolved_pipeline()
     if pipeline == "staged":
         from tpurt_torch.render.staged import StagedRenderer
 
         return StagedRenderer(ds, accel, meta=meta, config=config,
-                              device=device)
+                              device=device, mesh=mesh)
+    if mesh is not None:
+        from tpurt_torch.parallel.mesh import (distributed_spec,
+                                               render_batch_distributed)
+
+        rows_per_shard, _ = distributed_spec(config, mesh)
+
+        def sharded(cam, seed, sample0):
+            img, counts = render_batch_distributed(
+                ds, cam, seed, sample0, accel, meta=meta, config=config,
+                mesh=mesh, rows_per_shard=rows_per_shard)
+            return img[:config.height], counts
+
+        return sharded
     if pipeline == "mega":
         from tpurt_torch.render.integrator import render_batch as batch
     else:
@@ -291,7 +323,7 @@ def _make_renderer(config, ctx, device):
 
 
 def _render_scene_once(config, ctx, camera, state, verbose, device,
-                       readback_stats=True):
+                       readback_stats=True, mesh=None):
     cam = camera if camera is not None else ctx["scene"].camera
     if cam is None:
         raise ValueError("scene has no camera")
@@ -307,9 +339,9 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
     key = (dataclasses.replace(config, spp=0, seed=0, exposure=1.0),
            os.environ.get("TPURT_PAIR_LOOP"),
            os.environ.get("TPURT_ENTRY_ROWS"),
-           os.environ.get("TPURT_SORTED_WAVE"))
+           os.environ.get("TPURT_SORTED_WAVE"), _mesh_key(mesh))
     if ctx.get("renderer_key") != key:
-        ctx["renderer"] = _make_renderer(config, ctx, device)
+        ctx["renderer"] = _make_renderer(config, ctx, device, mesh)
         ctx["renderer_key"] = key
     renderer = ctx["renderer"]
     if state is None:
@@ -320,13 +352,15 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    n_batches = -(-config.spp // config.spp_per_batch)
+    # a batch adds spp_per_batch samples on each sample shard
+    spp_batch = config.spp_per_batch * config.n_sample_shards
+    n_batches = -(-config.spp // spp_batch)
     sync()
     t0 = time.perf_counter()
     total_rays = None
     for _ in range(int(state.batch_index), n_batches):
         radiance_sum, counts = renderer(cam, state.seed, state.n_samples)
-        state = fb.accumulate(state, radiance_sum, config.spp_per_batch)
+        state = fb.accumulate(state, radiance_sum, spp_batch)
         total_rays = counts if total_rays is None else total_rays + counts
         if verbose:
             sync()

@@ -20,6 +20,17 @@ re-renders uncapped), and the resolve puts every ray back in its
 position before the per-pixel sums, which it then takes in the order of
 the default loop: the two loops' images are equal.
 
+On a ("sample", "tile") mesh (``tpurt_torch.parallel``) the renderer is
+one shard of the batch, as the reference's shard-mapped stages are: the
+pixel stream is padded to a multiple of the tile shards (pad pixels
+trace at (0, 0) and count as rays), tile shard t traces chunk t of it,
+each of its samples in turn, and sample shard s draws the samples s·spp
++ [0, spp) of the batch's window. The resolve gathers every shard's
+per-pixel sums, adds the sample shards in fixed order, puts the tile
+chunks back in shard order, drops the pads and scatters to raster: every
+rank ends with the whole frame and the world's counters. The sorted-wave
+variant stays single-device, as in the reference.
+
 The reference's per-stage executables, AOT cache and stage fusion
 variants exist to work around a TPU backend and are not carried.
 """
@@ -84,12 +95,15 @@ class StagedRenderer:
     ``device``: ``renderer(cam, seed, sample0) -> ((H, W, 3) radiance sum,
     (NCOUNT,) counters)``. The stages are methods so a caller can stop at
     any wave (``chip_smoke.py`` takes the first bounce wave's kernel
-    inputs from them)."""
+    inputs from them). With a ``mesh`` the renderer traces its rank's
+    shard and the call returns the world's frame and counters;
+    ``shard`` gives the shard's own sums, which ``frame`` merges."""
 
     def __init__(self, ds, accel, *, meta: SceneMeta, config: RenderConfig,
-                 device):
+                 device, mesh=None):
         self.ds = ds
         self.config = config
+        self.mesh = mesh
         self.device = device = torch.device(device)
         w, h = config.width, config.height
         spp = config.spp_per_batch
@@ -97,15 +111,24 @@ class StagedRenderer:
         self.ncount, self.want0 = counter_layout(mb)
         px, py = full_frame_pixels_tiled(w, h)
         self.n_px = n_px = px.shape[0]
-        self.n = n = n_px * spp
+        lin = py.to(torch.int64) * w + px.to(torch.int64)
+        self.linear = lin.to(device)  # tile order → raster index
+        # the shard's pixel chunk of the stream padded to a multiple of
+        # the tile shards (pads at (0, 0)), and its sample offset
+        n_tile = mesh.n_tile if mesh is not None else 1
+        pad = (-n_px) % n_tile
+        self.n_local = n_local = (n_px + pad) // n_tile
+        self.sample_offset = mesh.sample_id * spp if mesh is not None else 0
+        t0 = (mesh.tile_id if mesh is not None else 0) * n_local
+        px, py, lin = (torch.cat([x, x.new_zeros(pad)])[t0:t0 + n_local]
+                       for x in (px, py, lin))
+        self.n = n = n_local * spp
         self.px = px.repeat(spp).to(device)
         self.py = py.repeat(spp).to(device)
-        lin = py.to(torch.int64) * w + px.to(torch.int64)
         self.pid = lin.repeat(spp).to(device)  # RNG pixel key per ray
-        self.linear = lin.to(device)  # tile order → raster index
         # within-batch sample index of every ray
         self.ds_r = torch.arange(spp, dtype=torch.int64).repeat_interleave(
-            n_px).to(device)
+            n_local).to(device)
 
         # one intersector per wave kind and cap (caps come from measured
         # tables; alive rays past a cap are counted as live overflow).
@@ -124,7 +147,8 @@ class StagedRenderer:
             return make_occluder(ds, accel, fn, any_hit, meta=meta)
 
         self.sorted = (
-            hasattr(accel, "cluster_lo") and config.shading_mode != "flat"
+            mesh is None and hasattr(accel, "cluster_lo")
+            and config.shading_mode != "flat"
             and os.environ.get("TPURT_SORTED_WAVE",
                                "1" if config.sorted_wave else "0") == "1")
         if self.sorted:
@@ -266,15 +290,29 @@ class StagedRenderer:
                                self.ds.background)
         return state._replace(radiance=radiance)
 
-    def resolve(self, state: WaveState):
-        """Per-pixel sample sums (s0 + s1 + …), tile order → raster."""
+    def pixel_sums(self, state: WaveState):
+        """The shard's per-pixel sample sums (s0 + s1 + …) in tile order,
+        and its counters."""
+        total = state.radiance.reshape(self.config.spp_per_batch,
+                                       self.n_local, 3).sum(dim=0)
+        return total, state.rays
+
+    def frame(self, total, rays):
+        """Per-pixel sums in tile order → ((H, W, 3) raster image,
+        counters). On a mesh, the shard's sums and counters are first
+        merged with every rank's (``RenderMesh.merge``); the pads, last
+        in the stream, are dropped before the scatter."""
         c = self.config
-        total = state.radiance.reshape(c.spp_per_batch, self.n_px,
-                                       3).sum(dim=0)
+        if self.mesh is not None:
+            total, rays = self.mesh.merge(total, rays)
         img = torch.zeros((c.width * c.height, 3), dtype=torch.float32,
                           device=self.device)
-        img[self.linear] = total
-        return img.reshape(c.height, c.width, 3), state.rays
+        img[self.linear] = total[:self.n_px]
+        return img.reshape(c.height, c.width, 3), rays
+
+    def resolve(self, state: WaveState):
+        """The wave's per-pixel sums → (raster image, counters)."""
+        return self.frame(*self.pixel_sums(state))
 
     def sort_wave(self, state: WaveState) -> WaveState:
         """The wave in the next trace's coherence order (octant, then
@@ -294,7 +332,7 @@ class StagedRenderer:
         smp = torch.cat([state.sample] + [t[2] for t in tails])
         radiance = torch.empty_like(rad)
         radiance[smp * self.n_px + self.pos_of_pix[pix]] = rad
-        return self.resolve(state._replace(radiance=radiance))
+        return self.pixel_sums(state._replace(radiance=radiance))
 
     def _sorted_batch(self, cam: Camera, seed: int, sample0: int):
         mb = self.config.max_bounces
@@ -320,10 +358,14 @@ class StagedRenderer:
                 state = WaveState(*(f[:cap] for f in state[:-1]), rays=rays)
         return self.resolve_sorted(state, tails)
 
-    def __call__(self, cam: Camera, seed: int, sample0: int):
+    def shard(self, cam: Camera, seed: int, sample0: int):
+        """The batch's samples [sample0, sample0 + spp) on this shard:
+        (its per-pixel sums in tile order, pads included; its counters).
+        A sample shard draws its own window of them."""
+        sample0 = sample0 + self.sample_offset
         if self.config.shading_mode == "flat":
             hit, state = self.trace(self.raygen(cam, seed, sample0), 0)
-            return self.resolve(self.flat_shade(state, hit))
+            return self.pixel_sums(self.flat_shade(state, hit))
         if self.sorted:
             return self._sorted_batch(cam, seed, sample0)
         sampler = self.sampler(seed, sample0)
@@ -333,4 +375,7 @@ class StagedRenderer:
             state, shadow = self.shade(state, hit, sampler, bounce)
             if shadow is not None:
                 state = self.occlude(state, shadow, bounce)
-        return self.resolve(state)
+        return self.pixel_sums(state)
+
+    def __call__(self, cam: Camera, seed: int, sample0: int):
+        return self.frame(*self.shard(cam, seed, sample0))

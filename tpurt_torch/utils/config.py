@@ -1,9 +1,9 @@
 """Config system — port of ``tpurt.utils.config``.
 
 One frozen dataclass ``RenderConfig`` with the reference's fields and
-defaults, and the per-demo presets of the benchmark ladder. The sharding
-fields are kept so configs stay interchangeable; ``render_scene`` rejects
-more than one shard (multi-device rendering is not ported).
+defaults, and the per-demo presets of the benchmark ladder. More than one
+sample or tile shard renders on a world of that many ranks
+(``tpurt_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ class RenderConfig:
     pipeline: str = "auto"
     wavefront_capacity: int = 1 << 16
     material_sort: bool = True
-    # distributed execution: axis sizes; 1 = single device
+    # distributed execution: mesh axis sizes (one rank a shard); 1 = single
+    # device
     n_sample_shards: int = 1
     n_tile_shards: int = 1
 

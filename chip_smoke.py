@@ -102,7 +102,33 @@ Phases, in order; any failure exits nonzero and prints no result:
                 RMSE is not the bar); and the bvh_pair bunny golden with
                 pairs_per_ray=1, which must retry at least once and end
                 without overflow;
-  5. files    — the scene-file, texture, cut-out and CLI path, through
+  5. variants — the reference's switches on the card. Phase 3 also holds
+                K1's flat supercluster mode (tileloop_sc, the walk of
+                TPURT_SUPERCLUSTER=1 over a flat accel) to the exact walk
+                on the bunny's bounce and shadow waves, entries from K2
+                over the 107 superboxes, with its edge-case lists, its
+                ptxas registers and its bound. Then, each as a phase-4
+                path (warmup, timed render with the counters zeroed, its
+                kernels launched): bunny_sc (TPURT_SUPERCLUSTER=1),
+                sponza_cluster (TPURT_SUPERCLUSTER=0: per-cluster
+                two-level entries at 1080p, held to the sponza path's
+                energy bias ≤ 1e-3), bunny_interval and bunny_exact_all
+                (TPURT_EXACT_MASK=0 / all: K2 launches none / one more a
+                batch than the bunny path), bunny_unfused
+                (TPURT_FUSED_ENTRIES=0: K3 launches where K2 did, the
+                accumulation bit-equal to the bunny path's) and the
+                clusterings bunny_kdsah, bunny_kd and bunny_morton_order
+                (TPURT_CLUSTERING, each with its host build seconds); the
+                bunny variants held to the bunny path's image (RMSE ≤
+                1e-3, under 2% of pixels off by more than 1e-3), each
+                variant's golden (bunny RMSE ≤ 1e-3, sponza energy bias ≤
+                1e-3), every Mrays/s beside the bunny's and sponza's;
+                batch_key and uniform2 (600, 800) on the card bit-equal
+                to the CPU's; one bunny batch under TPURT_CAPTURE_WAVES
+                and TPURT_DEBUG_STAGES=1 (the reference's files, keys and
+                shapes, ten stage lines, the image bit-equal to the
+                bunny path's);
+  6. files    — the scene-file, texture, cut-out and CLI path, through
                 ``tpurt_torch.cli.main`` where a user would call it: the
                 bunny config over the bunny plus a 16×16-texel RGBA fence
                 cut out at alpha 0.5, against its geometric twin (the
@@ -122,7 +148,7 @@ Phases, in order; any failure exits nonzero and prints no result:
                 renders and the flythrough run with the launch counters
                 zeroed just before and read just after, and their kernels
                 must have launched;
-  6. mesh     — worlds of the port's render sharding (tpurt_torch.parallel)
+  7. mesh     — worlds of the port's render sharding (tpurt_torch.parallel)
                 on cuda:0, each rank a child process of this script
                 (``chip_smoke.py --mesh-rank WORLD OUT``) joined over gloo
                 (ranks that share a card cannot use NCCL), with
@@ -143,7 +169,7 @@ Phases, in order; any failure exits nonzero and prints no result:
                 world's kernels. The world's Mrays/s is logged beside the
                 single process's and the nvidia-smi line: ranks sharing
                 one card measure no scaling;
-  7. report   — the kernel JSON line, the nvidia-smi line, and last the
+  8. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -310,15 +336,16 @@ def check_k2(label, wave, lo, hi):
     bad = int((k2 != p2).sum())
     ms = cuda_ms(lambda: tw.entries_cuda(org, inv_d, tmv, lo, hi, scale), 10)
     counts = (k2 != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
+    rec = dict(ms=ms, plain_ms=plain_ms, mismatches=bad,
+               **slab_bound(wave, lo, k2.shape[1] * 4))
     log(f"[kernels] K2 {label}: slab {tuple(k2.shape)} over {lo.shape[0]} "
         f"boxes, {int(counts.sum())} entries, {bad} words differ from the "
-        f"plain version; {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"plain version; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     if bad:
         raise AssertionError(f"K2 {label} is not bit-equal to entries_plain")
     entry = torch.sort(k2, dim=1).values
-    return entry, counts, scale, dict(
-        ms=ms, plain_ms=plain_ms, mismatches=bad,
-        **slab_bound(wave, lo, k2.shape[1] * 4))
+    return entry, counts, scale, rec
 
 
 def check_k3(label, wave, lo, hi):
@@ -1002,6 +1029,28 @@ def check_kernels(device) -> list:
         check_k1_edges("flat (bunny shadow)", waves["shadow"], rows, entry,
                        counts, scale, True, seg=seg)
     del entry
+    # TPURT_SUPERCLUSTER=1 on the flat accel: K2 over the superboxes, K1's
+    # flat supercluster mode (tileloop_sc) expanding each entry's children
+    sc_tl = dict(sc_meta=accel.sc_meta)
+    flat_sc, k2_sc = {}, {}
+    for kind, any_hit in (("bounce", False), ("shadow", True)):
+        entry, counts, scale, k2_sc[kind] = check_k2(
+            f"bunny {kind}, sc entries", waves[kind], accel.sc_lo,
+            accel.sc_hi)
+        flat_sc[kind] = check_k1(
+            f"flat sc {'any-hit' if any_hit else 'closest'} (bunny {kind}, "
+            f"S = {accel.sc_lo.shape[0]})", waves[kind], rows, entry,
+            counts, scale, any_hit, **sc_tl)
+        check_k1_edges(f"flat sc (bunny {kind})", waves[kind], rows, entry,
+                       counts, scale, any_hit, **sc_tl)
+        del entry
+    sc_regs = {hit: kernel_registers("tileloop_kernel", f"{k},0,1,0")
+               for hit, k in (("closest", 0), ("lean", 1))}
+    log(f"[kernels] K1 flat sc registers (ptxas): {sc_regs}; closest "
+        f"{flat_sc['bounce']['ms']:.3f} ms at "
+        f"{flat_sc['bounce']['bound_ms'] / flat_sc['bounce']['ms']:.1%} of "
+        f"its bound, lean {flat_sc['shadow']['ms']:.3f} ms at "
+        f"{flat_sc['shadow']['bound_ms'] / flat_sc['shadow']['ms']:.1%}")
     k3 = {kind: check_k3(f"bunny {kind}", waves[kind], lo, hi)
           for kind in ("bounce", "shadow")}
     # past the entry-row gate: K1's pair segments (TPURT_ENTRY_ROWS=0) at
@@ -1080,7 +1129,7 @@ def check_kernels(device) -> list:
             any_hit, n_c, all_pairs=True)
     del accel, waves
 
-    k2_all = [k2_bunny, *k2_sponza.values()]
+    k2_all = [k2_bunny, *k2_sc.values(), *k2_sponza.values()]
     return [
         dict(name="entries", route="cuda",
              source="tpurt_torch/csrc/entries.cu",
@@ -1092,7 +1141,10 @@ def check_kernels(device) -> list:
              sponza_ms={k: r["ms"] for k, r in k2_sponza.items()},
              sponza_plain_ms={k: r["plain_ms"] for k, r in k2_sponza.items()},
              sponza_bound_ms={k: r["bound_ms"]
-                              for k, r in k2_sponza.items()}),
+                              for k, r in k2_sponza.items()},
+             bunny_sc_ms={k: r["ms"] for k, r in k2_sc.items()},
+             bunny_sc_plain_ms={k: r["plain_ms"] for k, r in k2_sc.items()},
+             bunny_sc_bound_ms={k: r["bound_ms"] for k, r in k2_sc.items()}),
         dict(name="exact_mask", route="cuda",
              source="tpurt_torch/csrc/entries.cu",
              replaces="tpurt/kernels/tilewave.py:709", max_abs_err=0.0,
@@ -1120,6 +1172,8 @@ def check_kernels(device) -> list:
                   k1[("cluster", "shadow")]),
         k1_record("tileloop_tl_sc", k1[("sc", "bounce")],
                   k1[("sc", "shadow")]),
+        k1_record("tileloop_sc", flat_sc["bounce"], flat_sc["shadow"],
+                  registers=sc_regs),
         k1_record("tileloop_seg", seg["bounce"], seg["shadow"]),
         k1_record("tilegrid", grid["bounce"], grid["shadow"],
                   replaces="tpurt/kernels/tilewave.py:276"),
@@ -1254,10 +1308,10 @@ def environ(env: dict):
                 os.environ[k] = v
 
 
-def render_path(name: str, device):
-    """One batch of the path at its preset's size: warmup, then a timed
-    run with the launch counters zeroed just before it. Returns its
-    counts and its accumulated image."""
+def render_path(name: str, device, paths=PATHS):
+    """One batch of the path (``paths[name]``) at its preset's size:
+    warmup, then a timed run with the launch counters zeroed just before
+    it. Returns its counts, its accumulated image and its Mrays/s."""
     import torch
 
     from tpurt_torch import kernels as kn
@@ -1267,7 +1321,7 @@ def render_path(name: str, device):
     from tpurt_torch.scene.procedural import sponza_standin
     from tpurt_torch.utils.config import get_config
 
-    preset, spp, standin, over, env, kernels = PATHS[name]
+    preset, spp, standin, over, env, kernels = paths[name]
     config = get_config(preset, spp=spp, **over)
     scene = (load_scene(config.scene) if standin is None
              else sponza_standin(*standin))
@@ -1300,7 +1354,8 @@ def render_path(name: str, device):
         raise AssertionError(f"{name}: two renders with the same seed differ")
     if stats["pair_overflow"]:
         raise AssertionError(f"{name}: the render ended with a pair overflow")
-    for k in kernels:
+    on_card = torch.device(device).type == "cuda"  # else a CPU dry run
+    for k in kernels if on_card else ():
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched in the "
                                  "main-path render")
@@ -1350,8 +1405,33 @@ def sorted_cap_check(device, uncapped):
                              "re-rendered uncapped")
 
 
-def golden_phase(device) -> None:
-    """The golden fixtures rendered on the card."""
+# the golden fixtures of phase 4: (fixture, config overrides, switches)
+GOLDEN_CASES = (
+    ("bunny", {}, {}), ("hello_triangle", {}, {}),
+    ("cornell", {}, {}), ("sponza", {}, {}), ("cornell_pt", {}, {}),
+    ("bunny", dict(intersector="bvh_pair"), {}),
+    ("bunny", dict(intersector="bvh_pair", pairs_per_ray=1), {}),
+    ("bunny", dict(intersector="bvh_packet"), {}),
+    ("bunny", {}, dict(TPURT_ENTRY_ROWS="0")),
+    # at the golden's 64×48 one 1024-ray tile spans the screen,
+    # so the primary interval mask holds ~every cluster: the
+    # primary budget starts at the bounce waves' 384 a tile (the
+    # default 48 cannot reach it in the 3 retries)
+    ("bunny", dict(pairs_avg=384), dict(TPURT_PAIR_LOOP="0")),
+    ("cornell", {}, dict(TPURT_PAIR_LOOP="0")),
+    # the paths that generated the goldens: the megakernel with
+    # the two-level LBVH (> 128 triangles) or the brute force
+    ("bunny", dict(pipeline="mega", intersector="bvh"), {}),
+    ("hello_triangle", dict(pipeline="mega", intersector="brute"),
+     {}),
+    ("cornell", dict(pipeline="mega", intersector="brute"), {}),
+    ("sponza", dict(pipeline="mega", intersector="bvh"), {}),
+)
+
+
+def golden_phase(device, cases=GOLDEN_CASES) -> None:
+    """The golden fixtures rendered on the card, each under its config
+    overrides and switches."""
     import numpy as np
 
     from tpurt_torch.render import framebuffer as fb
@@ -1359,26 +1439,7 @@ def golden_phase(device) -> None:
     from tpurt_torch.utils.config import get_config
 
     goldens = golden_configs()
-    for name, over, env in (
-            ("bunny", {}, {}), ("hello_triangle", {}, {}),
-            ("cornell", {}, {}), ("sponza", {}, {}), ("cornell_pt", {}, {}),
-            ("bunny", dict(intersector="bvh_pair"), {}),
-            ("bunny", dict(intersector="bvh_pair", pairs_per_ray=1), {}),
-            ("bunny", dict(intersector="bvh_packet"), {}),
-            ("bunny", {}, dict(TPURT_ENTRY_ROWS="0")),
-            # at the golden's 64×48 one 1024-ray tile spans the screen,
-            # so the primary interval mask holds ~every cluster: the
-            # primary budget starts at the bounce waves' 384 a tile (the
-            # default 48 cannot reach it in the 3 retries)
-            ("bunny", dict(pairs_avg=384), dict(TPURT_PAIR_LOOP="0")),
-            ("cornell", {}, dict(TPURT_PAIR_LOOP="0")),
-            # the paths that generated the goldens: the megakernel with
-            # the two-level LBVH (> 128 triangles) or the brute force
-            ("bunny", dict(pipeline="mega", intersector="bvh"), {}),
-            ("hello_triangle", dict(pipeline="mega", intersector="brute"),
-             {}),
-            ("cornell", dict(pipeline="mega", intersector="brute"), {}),
-            ("sponza", dict(pipeline="mega", intersector="bvh"), {})):
+    for name, over, env in cases:
         want = np.load(os.path.join(ROOT, "tests", "golden", "data",
                                     f"{name}.npz"))["image"]
         cfg = get_config(name, **dict(goldens[name], **over))
@@ -1414,7 +1475,199 @@ def golden_phase(device) -> None:
                                  "limit")
 
 
-# --- 5. files and CLI ---------------------------------------------------
+# --- 5. the reference's switches ----------------------------------------
+
+# the variant paths: as PATHS (the switches set around both renders)
+VARIANT_PATHS = {
+    "bunny_sc": ("bunny", 8, None, {}, dict(TPURT_SUPERCLUSTER="1"),
+                 ("entries", "tileloop_sc")),
+    "sponza_cluster": ("sponza", 2, None, {}, dict(TPURT_SUPERCLUSTER="0"),
+                       ("entries", "tileloop_tl")),
+    "bunny_interval": ("bunny", 8, None, {}, dict(TPURT_EXACT_MASK="0"),
+                       ("tileloop",)),
+    "bunny_exact_all": ("bunny", 8, None, {}, dict(TPURT_EXACT_MASK="all"),
+                        ("entries", "tileloop")),
+    "bunny_unfused": ("bunny", 8, None, {}, dict(TPURT_FUSED_ENTRIES="0"),
+                      ("exact_mask", "tileloop")),
+    "bunny_kdsah": ("bunny", 8, None, {}, dict(TPURT_CLUSTERING="kdsah"),
+                    ("entries", "tileloop")),
+    "bunny_kd": ("bunny", 8, None, {}, dict(TPURT_CLUSTERING="kd"),
+                 ("entries", "tileloop")),
+    # the input (Morton) order; bunny_morton is the ray sort's path
+    "bunny_morton_order": ("bunny", 8, None, {},
+                           dict(TPURT_CLUSTERING="morton"),
+                           ("entries", "tileloop")),
+}
+VARIANT_GOLDENS = (
+    ("bunny", {}, dict(TPURT_SUPERCLUSTER="1")),
+    ("sponza", {}, dict(TPURT_SUPERCLUSTER="0")),
+    ("bunny", {}, dict(TPURT_EXACT_MASK="0")),
+    ("bunny", {}, dict(TPURT_EXACT_MASK="all")),
+    ("bunny", {}, dict(TPURT_FUSED_ENTRIES="0")),
+    ("bunny", {}, dict(TPURT_CLUSTERING="kdsah")),
+    ("bunny", {}, dict(TPURT_CLUSTERING="kd")),
+    ("bunny", {}, dict(TPURT_CLUSTERING="morton")),
+)
+CAPTURE_FILES = {f"bounce{b}_wave.npz": ("org", "dirn", "alive")
+                 for b in (1, 2)}
+CAPTURE_FILES.update({f"shadow{b}_wave.npz": ("org", "dirn", "tmax", "want")
+                      for b in (0, 1, 2)})
+
+
+def energy(label, got, want, spp: int) -> None:
+    """Energy bias and RMSE between two accumulations of ``spp`` samples
+    (sponza's bar: bias ≤ 1e-3)."""
+    import torch
+
+    a, b = got / spp, want / spp
+    bias = float(a.mean() - b.mean())
+    rmse = float(torch.sqrt(((a - b) ** 2).mean()))
+    off = float(((a - b).abs() > 1e-3).float().mean())
+    log(f"[variants] {label} against the sponza path's image: energy bias "
+        f"{bias:+.3e}, RMSE {rmse:.3e}, {off:.4%} of pixels off by more "
+        "than 1e-3")
+    if not abs(bias) <= GOLDEN_BIAS:
+        raise AssertionError(f"{label}: energy bias over the limit")
+
+
+def threefry_check(device) -> None:
+    """(f): batch_key and uniform2 of shape (600, 800) on the card,
+    bit-equal to the same calls on the CPU."""
+    import torch
+
+    from tpurt_torch.core import sampling
+
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        key = sampling.batch_key(sampling._threefry_seed(42).to(dev), 5)
+        out[dev.type] = (key.cpu(), sampling.uniform2(key, (600, 800)))
+    (k_cpu, u_cpu), (k_dev, u_dev) = out["cpu"], out[device.type]
+    same = torch.equal(k_cpu, k_dev) and torch.equal(u_cpu, u_dev.cpu())
+    log(f"[variants] threefry: batch_key {k_dev.tolist()} and uniform2 "
+        f"{tuple(u_dev.shape)} on {u_dev.device}, mean "
+        f"{float(u_dev.mean()):.6f}; bit-equal to the CPU's {same}")
+    if not same or u_dev.device.type != device.type:
+        raise AssertionError("threefry on the card differs from the CPU's")
+
+
+def capture_check(device, default_accum) -> None:
+    """(g): one bunny batch under TPURT_CAPTURE_WAVES and
+    TPURT_DEBUG_STAGES: the reference's files, keys and shapes, the stage
+    lines, and the image bit-equal to the default loop's."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpurt_torch.render import render_scene
+    from tpurt_torch.utils.config import get_config
+
+    config = get_config("bunny", spp=8)
+    n = config.width * config.height * config.spp_per_batch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
+    out = io.StringIO()
+    try:
+        with environ(dict(TPURT_CAPTURE_WAVES=tmp, TPURT_DEBUG_STAGES="1")):
+            with contextlib.redirect_stdout(out):
+                state, _ = render_scene(config, device=device)
+        files = sorted(os.listdir(tmp))
+        shapes = {}
+        for name in files:
+            z = np.load(os.path.join(tmp, name))
+            shapes[name] = {k: z[k].shape for k in z.files}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stages = [ln.strip() for ln in out.getvalue().splitlines()
+              if ln.startswith("    [stage] ")]
+    for ln in stages:
+        log(f"[variants] capture run: {ln}")
+    same = bool(torch.equal(state.accum, default_accum))
+    want = {name: {k: (n, 3) if k in ("org", "dirn") else (n,)
+                   for k in keys} for name, keys in CAPTURE_FILES.items()}
+    log(f"[variants] capture: {files}, shapes {shapes}; {len(stages)} stage "
+        f"lines; image bit-equal to the default loop's {same}")
+    if shapes != want:
+        raise AssertionError(f"capture files {shapes}, want {want}")
+    if len(stages) != 1 + 3 * (config.max_bounces + 1) or not same:
+        raise AssertionError("the capture run's stage lines or image are "
+                             "wrong")
+
+
+def variants_phase(device, launches: dict, images: dict, base: dict,
+                   mrays: dict, smi: str) -> None:
+    """Phase 5 of the module docstring on ``device`` (a CPU dry run counts
+    no launches). ``images`` and ``base`` hold the bunny and sponza
+    paths' accumulations and launch counts from phase 4; the variant
+    paths' launches join ``launches``."""
+    import time as _time
+
+    import torch
+
+    from tpurt_torch.render import build_accel
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.scene.device import to_device
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    got = {}
+    for name in VARIANT_PATHS:
+        counts, accum, mrays[name] = render_path(name, device,
+                                                 VARIANT_PATHS)
+        got[name] = (counts, accum)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[variants] Mrays/s a path ({smi}): bunny {mrays['bunny']:.4f}, "
+        f"sponza {mrays['sponza']:.4f}, "
+        + ", ".join(f"{k} {mrays[k]:.4f}" for k in VARIANT_PATHS))
+    # (a), (c), (e): the bunny variants against the bunny path's image
+    for name in VARIANT_PATHS:
+        if name.startswith("bunny_"):
+            compare_accums(name, got[name][1], images["bunny"], 8)
+    # (b) per-cluster two-level entries at 1080p against the sc default
+    energy("sponza_cluster", got["sponza_cluster"][1], images["sponza"], 2)
+    # (c) K2's launches: none without the exact mask, one more a batch
+    # (the primary wave) on every wave; (d) K3 in K2's place, bit-equal
+    b2 = base["bunny"].get("entries", 0)
+    k2 = {name: got[name][0].get("entries", 0)
+          for name in ("bunny_interval", "bunny_exact_all", "bunny_unfused")}
+    k3 = {name: got[name][0].get("exact_mask", 0) for name in k2}
+    unfused_same = bool(torch.equal(got["bunny_unfused"][1],
+                                    images["bunny"]))
+    log(f"[variants] K2 launches a batch: bunny {b2}, {k2}; K3 {k3}; "
+        f"bunny_unfused bit-equal to the bunny path {unfused_same}")
+    on_card = torch.device(device).type == "cuda"  # else a CPU dry run
+    if (on_card and (k2["bunny_interval"] or k3["bunny_interval"]
+                     or k2["bunny_exact_all"] != b2 + 1
+                     or k2["bunny_unfused"] or k3["bunny_unfused"] != b2)
+            or not unfused_same):
+        raise AssertionError("the exact-mask or fused-entry switches ran "
+                             "other kernels than they should")
+    # (e) the host build of each clustering at the preset's size
+    scene = load_scene("bunny")
+    meta = scene_meta(scene)
+    ds = to_device(scene, device)
+    for mode in ("hier", "kdsah", "kd", "morton"):
+        with environ(dict(TPURT_CLUSTERING=mode)):
+            t0 = _time.perf_counter()
+            accel = build_accel(get_config("bunny"), ds, meta, scene=scene,
+                                device=device)
+            build_s = _time.perf_counter() - t0
+        name = {"hier": "bunny", "morton": "bunny_morton_order"}.get(
+            mode, f"bunny_{mode}")
+        log(f"[variants] TPURT_CLUSTERING={mode}: host build + upload "
+            f"{build_s:.3f} s, {accel.cluster_lo.shape[0]} clusters; "
+            f"{mrays[name]:.4f} Mrays/s ({smi})")
+        del accel
+    # every variant's image against its golden
+    golden_phase(device, VARIANT_GOLDENS)
+    threefry_check(device)
+    capture_check(device, images["bunny"])
+
+
+# --- 6. files and CLI ---------------------------------------------------
 
 CUTOUT_RMSE = 1e-3  # the cut-out scene against its geometric twin
 CUTOUT_OFF = 2e-3  # a pixel "differs" past this (logged)
@@ -1774,7 +2027,7 @@ def native_check(bunny_obj: str) -> str:
 
 def files_phase(device, launches: dict, bunny=(800, 600, 8),
                 sponza=(1920, 1080, 2), fence_subdivisions=6) -> None:
-    """Scene files, textures, cutout and the CLI on ``device`` (phase 5
+    """Scene files, textures, cutout and the CLI on ``device`` (phase 6
     of the module docstring), at the bunny and sponza presets' sizes
     (width, height, spp) unless told smaller: the cut-out fence against
     its geometric twin, the OBJ and GLB round trips, a hand-written
@@ -2058,7 +2311,7 @@ def run_world(name: str, out_dir: str, device: str, size=()) -> list:
 
 
 def mesh_phase(device, launches: dict, smi: str, sizes=None) -> None:
-    """Phase 6 of the module docstring: each world against this process's
+    """Phase 7 of the module docstring: each world against this process's
     render of the same sample window on ``device`` (the ranks on its
     type: cuda:0 from the card, CPU ranks for a dry run), at the presets'
     sizes unless ``sizes`` maps a world to (width, height)."""
@@ -2159,10 +2412,10 @@ def main() -> int:
     report = check_kernels(device)
 
     # 4. render: each preset's main path, then the goldens
-    launches, images, mrays = {}, {}, {}
+    launches, images, mrays, base = {}, {}, {}, {}
     for name in PATHS:
-        counts, images[name], mrays[name] = render_path(name, device)
-        for k, v in counts.items():
+        base[name], images[name], mrays[name] = render_path(name, device)
+        for k, v in base[name].items():
             launches[k] = launches.get(k, 0) + v
     log(f"[render] Mrays/s a path ({smi}): "
         + ", ".join(f"{k} {v:.4f}" for k, v in mrays.items()))
@@ -2178,18 +2431,22 @@ def main() -> int:
     for name in ALTERNATE_BUNNY:
         compare_accums(name, images[name], images["bunny"], PATHS[name][1])
     sorted_cap_check(device, images["bunny_sorted"])
-    del images
+    images = {k: images[k] for k in ("bunny", "sponza")}
     golden_phase(device)
 
-    # 5. files and CLI
+    # 5. the reference's switches
+    variants_phase(device, launches, images, base, mrays, smi)
+    del images
+
+    # 6. files and CLI
     files_phase(device, launches)
 
-    # 6. worlds of ranks on the card
+    # 7. worlds of ranks on the card
     mesh_phase(device, launches, smi)
     for k in report:
         k["launches"] = launches.get(k["name"], 0)
 
-    # 7. report
+    # 8. report
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -135,10 +135,12 @@ def test_render_on_cuda_matches_cpu(cuda_device):
 
 def _k1_modes_accel(mode, device):
     """The accel of one tile-kernel mode on ``device``: the Cornell box
-    (all-pairs), sponza_standin(8, 3) two-level, or the full
+    (all-pairs), bunny_standin(5) flat with superclusters (214 clusters
+    under 27 superclusters), sponza_standin(8, 3) two-level, or the full
     sponza_standin() two-level with superclusters."""
-    if mode == "allpairs":
-        scene = cornell_box(path_tracer=True)
+    if mode in ("allpairs", "sc"):
+        scene = (cornell_box(path_tracer=True) if mode == "allpairs"
+                 else bunny_standin(subdivisions=5))
         accel = build_pair_accel(None, scene_meta(scene), scene=scene)
     else:
         scene = sponza_standin() if mode == "tl_sc" else sponza_standin(8, 3)
@@ -149,7 +151,8 @@ def _k1_modes_accel(mode, device):
 
 def _k1_modes_case(mode, device, n_tiles=3):
     """Seeded rays, tables and sorted entries for one K1 mode: all-pairs
-    on the Cornell box, two-level on sponza_standin(8, 3), two-level with
+    on the Cornell box, flat with supercluster entries on
+    bunny_standin(5), two-level on sponza_standin(8, 3), two-level with
     supercluster entries on the full sponza_standin()."""
     rng = np.random.default_rng(11)
     n = n_tiles * tw.TILE
@@ -173,9 +176,10 @@ def _k1_modes_case(mode, device, n_tiles=3):
         counts = torch.full((n_tiles,), n_c, dtype=torch.int32,
                             device=device)
         return (org, dirn, inv_d, tmax, acc.tri_rows, entry, counts, 0.0), tl
-    tl = dict(pair_meta=acc.pair_meta, inv_xform=acc.inv_xform)
+    tl = ({} if mode == "sc"
+          else dict(pair_meta=acc.pair_meta, inv_xform=acc.inv_xform))
     lo_e, hi_e = acc.cluster_lo, acc.cluster_hi
-    if mode == "tl_sc":
+    if mode in ("sc", "tl_sc"):
         lo_e, hi_e = acc.sc_lo, acc.sc_hi
         tl["sc_meta"] = acc.sc_meta
     scale = tw.tn_scale_of(lo_e.cpu().numpy(), hi_e.cpu().numpy())
@@ -186,18 +190,19 @@ def _k1_modes_case(mode, device, n_tiles=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["allpairs", "tl", "tl_sc"])
+@pytest.mark.parametrize("mode", ["allpairs", "sc", "tl", "tl_sc"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "lean_any"])
 def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
-    """K1's all-pairs, two-level and two-level + supercluster modes
-    against the plain version: slots, and instances where the slot
-    agrees; each mode counts under its own launch name."""
+    """K1's all-pairs, flat + supercluster, two-level and two-level +
+    supercluster modes against the plain version's exact walk: slots,
+    and instances where the slot agrees; each mode counts under its own
+    launch name."""
     args, tl = _k1_modes_case(mode, cuda_device)
     tw.reset_launch_counts()
     k = tw.tileloop_cuda(*args, any_hit, **tl)
     assert tw.launch_counts()[f"tileloop_{mode}"] == 1
     p = tw.tileloop_plain(*args, any_hit, exact_boxes=True, **tl)
-    assert len(k) == len(p) == (4 if mode == "allpairs" else 5)
+    assert len(k) == len(p) == (5 if "pair_meta" in tl else 4)
     live = args[3] >= 0
     same = live & (k[3] == p[3])
     assert int(same.sum()) >= 0.9999 * int(live.sum())
@@ -209,13 +214,14 @@ def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["flat", "seg", "tl", "tl_sc"])
+@pytest.mark.parametrize("mode", ["flat", "seg", "sc", "tl", "tl_sc"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "lean_any"])
 def test_tileloop_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
     """K1 on entry lists at the edges of its ring (chip_smoke.edge_case:
     none, one, an odd count, a full row, a far break at a group start
     right after its rows were fetched ahead), cut from 8-tile waves, flat,
-    as pair segments, two-level and with superclusters: held to the plain
+    as pair segments, flat with superclusters, two-level and two-level
+    with superclusters: held to the plain
     version's exact walk and K1's bars by chip_smoke.check_k1_edges, which
     raises on a miss; the tile without entries keeps its start values,
     and the last tile's rays all end below the entry their break is cut
@@ -444,13 +450,17 @@ def test_tilegrid_cuda_matches_plain(cuda_device, wave, mode, any_hit):
 @pytest.mark.parametrize("env,over,kernel", [
     ({}, dict(intersector="bvh_packet"), "packet"),
     (dict(TPURT_ENTRY_ROWS="0"), {}, "tileloop_seg"),
-    (dict(TPURT_PAIR_LOOP="0"), {}, "tilegrid")],
-    ids=["bvh_packet", "segments", "grid"])
+    (dict(TPURT_PAIR_LOOP="0"), {}, "tilegrid"),
+    (dict(TPURT_SUPERCLUSTER="1"), {}, "tileloop_sc"),
+    (dict(TPURT_FUSED_ENTRIES="0"), {}, "exact_mask"),
+    (dict(TPURT_EXACT_MASK="0"), {}, "tileloop")],
+    ids=["bvh_packet", "segments", "grid", "superclusters", "unfused",
+         "interval_mask"])
 def test_new_paths_render_on_cuda_match_cpu(cuda_device, monkeypatch, env,
                                             over, kernel):
-    """The bvh_packet intersector and the tile intersector's two switches
-    on the card: each launches its kernel, ends without overflow and
-    stays within RMSE 1e-3 of the CPU render."""
+    """The bvh_packet intersector and the tile intersector's switches on
+    the card: each launches its kernel, ends without overflow and stays
+    within RMSE 1e-3 of the CPU render."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     cfg = get_config("bunny", width=64, height=48, spp=2, spp_per_batch=2,

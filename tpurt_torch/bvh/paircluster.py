@@ -23,6 +23,7 @@ per instance-cluster, for scenes that reuse meshes.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -269,9 +270,25 @@ def hier_cluster_order(v0, v1, v2, size: int = TRIS_PER_CLUSTER,
 
 
 def cluster_order(v0, v1, v2, size: int = TRIS_PER_CLUSTER):
-    """Production triangle order for uniform clustering (hierarchical
-    kd-SAH — the reference's default)."""
-    return hier_cluster_order(v0, v1, v2, size)
+    """Triangle order for uniform clustering, picked by
+    ``TPURT_CLUSTERING`` as in the reference: ``hier`` (the default)
+    hierarchical kd-SAH with supercluster-aligned parents, ``kdsah`` flat
+    kd-SAH, ``kd`` widest-axis-midpoint splits; any other value keeps the
+    input (Morton) order (``morton``)."""
+    mode = clustering_mode()
+    if mode == "hier":
+        return hier_cluster_order(v0, v1, v2, size)
+    if mode == "kdsah":
+        return kd_cluster_order(v0, v1, v2, size, sah=True)
+    if mode == "kd":
+        return kd_cluster_order(v0, v1, v2, size, sah=False)
+    return np.arange(v0.shape[0])
+
+
+def clustering_mode() -> str:
+    """The ``TPURT_CLUSTERING`` switch the accel builds read (part of the
+    scene cache's key)."""
+    return os.environ.get("TPURT_CLUSTERING", "hier")
 
 
 def pack_tri_rows(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,

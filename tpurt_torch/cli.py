@@ -11,7 +11,8 @@ Every command renders on the card; ``--cpu`` renders on the CPU instead
 (every kernel then runs its plain version). Without ``--cpu`` and without
 a card, a render raises: nothing falls back to the CPU silently.
 ``render`` writes and resumes checkpoints (``--checkpoint``/``--resume``)
-and ``--profile DIR`` writes a ``torch.profiler`` trace there.
+and ``--profile DIR`` writes a ``torch.profiler`` trace there
+(``utils.profiling.trace``).
 ``animate`` renders a camera path (sponza's atrium flythrough, or an
 orbit) with one upload and accel build for all its frames.
 
@@ -349,16 +350,12 @@ def main(argv=None) -> int:
     profile_dir = getattr(args, "profile", None)
     if profile_dir:
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU]
-        if not args.cpu and torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        from tpurt_torch.utils import profiling
+
+        with profiling.trace(profile_dir, cuda=not args.cpu
+                             and torch.cuda.is_available()) as path:
             rc = args.fn(args)
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
         print(f"profiler trace → {path}")
         return rc
     return args.fn(args)

@@ -18,6 +18,10 @@ traversal kernel tests the clusters' triangles against the tile's rays:
      closest-hit or lean any-hit, with a far break;
   4. results are un-permuted to the caller's ray order.
 
+The reference's switches ``TPURT_EXACT_MASK``, ``TPURT_FUSED_ENTRIES``
+and ``TPURT_SUPERCLUSTER`` change step 1 and the mode below as they do
+there (``make_tile_intersector``).
+
 Modes, picked per wave as the reference picks them (its
 ``_entry_rows_enabled`` gate and launch sizing, ported as the rule for
 choosing a mode):
@@ -1155,17 +1159,18 @@ def _clamp_rows(mask, pairs_per_tile: int):
 
 
 def _trace_entry_rows(org, dirn, tmv, lo, hi, tri_rows, scale, *,
-                      any_hit, exact, tl, pairs_per_tile=0):
+                      any_hit, exact, tl, pairs_per_tile=0, fused=True):
     """One wave through the entry-row path: entry slab over the boxes
-    lo/hi (exact K2 build on sorted waves, interval frustum mask on
-    primary waves; with ``pairs_per_tile > 0`` the unpacked exact mask K3
-    or the interval mask, clamped per tile, then packed), per-row sort,
-    traversal. ``tl``: the two-level and supercluster tables for K1.
-    Returns ((bt, bu, bv, bs[, bi]), n_pairs, overflow)."""
+    lo/hi (``exact``: the exact slab reduction, else the interval frustum
+    mask; unclamped and ``fused``, the exact entries come packed from K2,
+    otherwise from the unpacked mask — K3 where exact — clamped per tile
+    when ``pairs_per_tile > 0``, then packed), per-row sort, traversal.
+    ``tl``: the two-level and supercluster tables for K1. Returns ((bt,
+    bu, bv, bs[, bi]), n_pairs, overflow)."""
     n_tiles = org.shape[0] // TILE
     inv_d = _safe_inv(dirn)
     overflow = torch.zeros((), dtype=torch.bool, device=org.device)
-    if exact and pairs_per_tile <= 0:
+    if exact and fused and pairs_per_tile <= 0:
         entry = exact_entries(org, inv_d, tmv, lo, hi, scale)
         counts = (entry != INT32_MAX).sum(dim=1, dtype=torch.int32)
     else:
@@ -1367,12 +1372,23 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
 
     Modes (module docstring): all-pairs for at most ALLPAIRS_MAX_CLUSTERS
     clusters (no sort, no restore, no live truncation); with the pair loop
-    (``TPURT_PAIR_LOOP``, read here, default on) entry rows while the
-    reference's gate passes (per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS
-    or past the cluster gate, without a clamp), else pair segments in
-    256-tile chunks; without it the grid over pairs (K4) in chunks of
+    (``TPURT_PAIR_LOOP``, default on) entry rows while the reference's
+    gate passes (per supercluster at C ≥ SC_AUTO_MIN_CLUSTERS or past the
+    cluster gate, without a clamp), else pair segments in 256-tile
+    chunks; without it the grid over pairs (K4) in chunks of
     ``96 K // pairs_avg`` tiles. Each wave's chunk lists go to one launch
-    of K1 or K4. A two-level accel
+    of K1 or K4.
+
+    The reference's switches, read here (so a renderer built under them
+    keeps them): ``TPURT_SUPERCLUSTER`` "auto" (the default: the rule
+    above), "1" (supercluster entries wherever their slab passes the
+    entry-row gate, with the pair loop and no clamp) or "0" (never);
+    ``TPURT_EXACT_MASK`` "1" (the default: exact entries on sorted waves,
+    the interval mask on primary waves), "all" (exact on every wave) or
+    "0" (the interval mask on every wave: K2 and K3 never launch);
+    ``TPURT_FUSED_ENTRIES`` "1" (the default: unclamped exact entry rows
+    come packed from K2) or "0" (from K3's mask and entry distances,
+    packed in torch: the same words). A two-level accel
     (``pair_meta``) runs K1/K4 in object space per instance-cluster and
     reports the hit instance.
 
@@ -1404,6 +1420,9 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         if s not in ("none", "morton", "octant", "pre"):
             raise ValueError(f"ray sort {s!r}")
     use_loop = os.environ.get("TPURT_PAIR_LOOP", "1") == "1"
+    sc_env = os.environ.get("TPURT_SUPERCLUSTER", "auto")
+    exact_env = os.environ.get("TPURT_EXACT_MASK", "1")
+    fused = os.environ.get("TPURT_FUSED_ENTRIES", "1") == "1"
     n_clusters = int(accel.cluster_lo.shape[0])
     lo = accel.cluster_lo
     hi = accel.cluster_hi
@@ -1463,10 +1482,11 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         # the mode and the launch sizing of this wave (the reference's)
         eff_avg = pairs_avg if avg_over is None else avg_over
         avg = clamp if eff_avg <= 0 else min(eff_avg, clamp)
-        sc_active = (sc_meta is not None and use_loop and pairs_per_tile <= 0
+        sc_active = (sc_meta is not None and sc_env != "0" and use_loop
+                     and pairs_per_tile <= 0
                      and _entry_rows_enabled(n_sc, n_tiles))
         cluster_rows = _entry_rows_enabled(n_clusters, n_tiles)
-        sc_active = sc_active and (not cluster_rows
+        sc_active = sc_active and (sc_env == "1" or not cluster_rows
                                    or n_clusters >= SC_AUTO_MIN_CLUSTERS)
         one_launch = use_loop and (sc_active or cluster_rows)
         pcap = 0
@@ -1512,7 +1532,7 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
                 n_tiles = kt
                 if one_launch:
                     chunk_tiles = kt
-        exact = sort != "none"
+        exact = exact_env == "all" or (exact_env == "1" and sort != "none")
         if not use_loop:
             out, n_pairs, overflow = _trace_grid(
                 org, dirn, tmv, lo, hi, tri_rows, chunk_tiles,
@@ -1521,11 +1541,13 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         elif sc_active:
             out, n_pairs, overflow = _trace_entry_rows(
                 org, dirn, tmv, accel.sc_lo, accel.sc_hi, tri_rows, sc_scale,
-                any_hit=any_hit, exact=exact, tl=dict(tl, sc_meta=sc_meta))
+                any_hit=any_hit, exact=exact, tl=dict(tl, sc_meta=sc_meta),
+                fused=fused)
         elif rows:
             out, n_pairs, overflow = _trace_entry_rows(
                 org, dirn, tmv, lo, hi, tri_rows, scale, any_hit=any_hit,
-                exact=exact, tl=tl, pairs_per_tile=pairs_per_tile)
+                exact=exact, tl=tl, pairs_per_tile=pairs_per_tile,
+                fused=fused)
         else:
             out, n_pairs, overflow = _trace_segments(
                 org, dirn, tmv, lo, hi, tri_rows, scale, chunk_tiles,

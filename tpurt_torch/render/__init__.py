@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpurt_torch.bvh.paircluster import clustering_mode
 from tpurt_torch.core.camera import Camera
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render.intersectors import scene_meta
@@ -51,6 +52,13 @@ from tpurt_torch.render.png import write_png
 from tpurt_torch.scene.device import to_device, torch_device
 from tpurt_torch.scene.loader import load_scene
 from tpurt_torch.utils.config import RenderConfig, get_config
+
+# the switches a renderer reads when it is built (the tile intersector's
+# and the staged loop's): a renderer is kept only under the same values
+RENDERER_SWITCHES = ("TPURT_PAIR_LOOP", "TPURT_ENTRY_ROWS",
+                     "TPURT_SORTED_WAVE", "TPURT_SUPERCLUSTER",
+                     "TPURT_EXACT_MASK", "TPURT_FUSED_ENTRIES",
+                     "TPURT_CAPTURE_WAVES", "TPURT_DEBUG_STAGES")
 
 # the one-entry scene-context cache (host scene, device arrays, accel),
 # and how many contexts it has built
@@ -137,8 +145,9 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
     host scene is cached too); in-memory scenes by identity, held by the
     entry so no other scene can take its id, and by their table sizes so
     one grown in place misses. The key holds what the accel depends on —
-    the intersector, the instancing, the LBVH's leaf size and the native
-    switch — and the mesh's shape, and not the pair budgets, so a budget
+    the intersector, the instancing, the LBVH's leaf size, the native
+    switch and the clustering (``TPURT_CLUSTERING``) — and the mesh's
+    shape, and not the pair budgets, so a budget
     retry reuses the entry. A miss drops the old entry's tensors before it
     builds the new one."""
     if scene is None:
@@ -152,7 +161,8 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
                      len(scene.textures))
     key = (scene_key, str(device), config.resolved_intersector(),
            config.instancing, config.bvh_leaf_size,
-           os.environ.get("TPURT_NO_NATIVE") == "1", _mesh_key(mesh))
+           os.environ.get("TPURT_NO_NATIVE") == "1", clustering_mode(),
+           _mesh_key(mesh))
     ctx = _SCENE_CACHE.get(key)
     if ctx is None or ctx["scene"] is not scene:
         _SCENE_CACHE.clear()
@@ -337,9 +347,7 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
     # the same switches (the tile intersector and the staged loop read
     # them when built); the config holds the pipeline
     key = (dataclasses.replace(config, spp=0, seed=0, exposure=1.0),
-           os.environ.get("TPURT_PAIR_LOOP"),
-           os.environ.get("TPURT_ENTRY_ROWS"),
-           os.environ.get("TPURT_SORTED_WAVE"), _mesh_key(mesh))
+           *(os.environ.get(k) for k in RENDERER_SWITCHES), _mesh_key(mesh))
     if ctx.get("renderer_key") != key:
         ctx["renderer"] = _make_renderer(config, ctx, device, mesh)
         ctx["renderer_key"] = key
@@ -404,6 +412,16 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
     if not readback_stats and total_rays is not None:
         stats["counts_device"] = total_rays
     return state, stats
+
+
+def estimate_rays(config: RenderConfig) -> int:
+    """Rays per sample per pixel over the frame: the primary ray and one
+    per bounce, and with NEE one shadow ray per path vertex too — the
+    upper bound behind the analytic ray count."""
+    per_path = 1 + config.max_bounces
+    if config.use_nee and config.shading_mode == "full":
+        per_path += 1 + config.max_bounces
+    return config.width * config.height * per_path
 
 
 def render_to_png(name_or_config, path: str, *, device="cuda",

@@ -44,6 +44,13 @@ def new_frame_state(width: int, height: int, seed: int = 0,
     )
 
 
+def reset(state: FrameState) -> FrameState:
+    """The accumulation cleared on a camera move, on its device; the seed
+    stays."""
+    return state._replace(accum=torch.zeros_like(state.accum), n_samples=0,
+                          batch_index=0)
+
+
 def accumulate(state: FrameState, radiance_sum: torch.Tensor,
                samples_added: int) -> FrameState:
     """Fold one rendered sample batch into the running accumulation."""

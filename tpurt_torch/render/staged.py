@@ -31,6 +31,16 @@ chunks back in shard order, drops the pads and scatters to raster: every
 rank ends with the whole frame and the world's counters. The sorted-wave
 variant stays single-device, as in the reference.
 
+Two of the reference's probes are carried. ``TPURT_CAPTURE_WAVES=<dir>``
+writes the default loop's real waves as ``.npz`` before they are traced:
+``bounce{b}_wave.npz`` (``org``, ``dirn``, ``alive``) for b ≥ 1 and
+``shadow{b}_wave.npz`` (``org``, ``dirn``, ``tmax``, ``want``), the
+reference's names and keys; it forces the default (unsorted) loop, as
+there, and takes a single-process render (a rank holds only its shard).
+``TPURT_DEBUG_STAGES=1`` waits for the device after each stage and
+prints its wall time as ``    [stage] <name>: X.XXs``. Neither changes
+the image.
+
 The reference's per-stage executables, AOT cache and stage fusion
 variants exist to work around a TPU backend and are not carried.
 """
@@ -39,8 +49,10 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpurt_torch import materials
@@ -146,8 +158,15 @@ class StagedRenderer:
                 lean=True, shadow_live_cap=shadow_cap)
             return make_occluder(ds, accel, fn, any_hit, meta=meta)
 
+        # the reference's probes (module docstring), read when built
+        self.capture = os.environ.get("TPURT_CAPTURE_WAVES") or None
+        self.debug = os.environ.get("TPURT_DEBUG_STAGES") == "1"
+        self._mark = 0.0
+        if self.capture and mesh is not None:
+            raise ValueError("TPURT_CAPTURE_WAVES captures a single-process "
+                             "render: a rank holds only its shard's waves")
         self.sorted = (
-            mesh is None and hasattr(accel, "cluster_lo")
+            mesh is None and not self.capture and hasattr(accel, "cluster_lo")
             and config.shading_mode != "flat"
             and os.environ.get("TPURT_SORTED_WAVE",
                                "1" if config.sorted_wave else "0") == "1")
@@ -181,6 +200,24 @@ class StagedRenderer:
                               _caps(config.shadow_caps, mb + 1, n)]
         self.resolver = materials.make_resolver(
             ds, accel, texture_filter=config.texture_filter)
+
+    def _stage(self, name: str) -> None:
+        """``TPURT_DEBUG_STAGES``: wait for the device, then print the
+        stage's wall time since the previous mark."""
+        if not self.debug:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        print(f"    [stage] {name}: {now - self._mark:.2f}s", flush=True)
+        self._mark = now
+
+    def _capture(self, name: str, **arrays) -> None:
+        """``TPURT_CAPTURE_WAVES``: the wave's arrays as ``<dir>/<name>.npz``
+        (host copies)."""
+        os.makedirs(self.capture, exist_ok=True)
+        np.savez(os.path.join(self.capture, name + ".npz"),
+                 **{k: v.cpu().numpy() for k, v in arrays.items()})
 
     def sampler(self, seed, sample0) -> PixelSampler:
         return PixelSampler.make(seed, sample0 + self.ds_r, self.pid)
@@ -337,15 +374,19 @@ class StagedRenderer:
     def _sorted_batch(self, cam: Camera, seed: int, sample0: int):
         mb = self.config.max_bounces
         state = self.raygen(cam, seed, sample0)
+        self._stage("raygen")
         tails = []
         for bounce in range(mb + 1):
             hit, state = self.trace(state, bounce)
+            self._stage(f"trace[{bounce}]")
             # the stream of each ray's own (sample, pixel)
             sampler = PixelSampler.make(seed, sample0 + state.sample,
                                         state.pix)
             state, shadow = self.shade(state, hit, sampler, bounce)
+            self._stage(f"shade[{bounce}]")
             if shadow is not None:
                 state = self.occlude(state, shadow, bounce)
+                self._stage(f"occlude[{bounce}]")
             if bounce == mb:
                 break
             state = self.sort_wave(state)
@@ -363,18 +404,33 @@ class StagedRenderer:
         (its per-pixel sums in tile order, pads included; its counters).
         A sample shard draws its own window of them."""
         sample0 = sample0 + self.sample_offset
+        self._mark = time.perf_counter()
         if self.config.shading_mode == "flat":
-            hit, state = self.trace(self.raygen(cam, seed, sample0), 0)
+            state = self.raygen(cam, seed, sample0)
+            self._stage("raygen")
+            hit, state = self.trace(state, 0)
+            self._stage("trace[0]")
             return self.pixel_sums(self.flat_shade(state, hit))
         if self.sorted:
             return self._sorted_batch(cam, seed, sample0)
         sampler = self.sampler(seed, sample0)
         state = self.raygen(cam, seed, sample0)
+        self._stage("raygen")
         for bounce in range(self.config.max_bounces + 1):
+            if self.capture and bounce > 0:
+                self._capture(f"bounce{bounce}_wave", org=state.org,
+                              dirn=state.dirn, alive=state.alive)
             hit, state = self.trace(state, bounce)
+            self._stage(f"trace[{bounce}]")
             state, shadow = self.shade(state, hit, sampler, bounce)
+            self._stage(f"shade[{bounce}]")
             if shadow is not None:
+                if self.capture:
+                    self._capture(f"shadow{bounce}_wave", org=shadow[0],
+                                  dirn=shadow[1], tmax=shadow[2],
+                                  want=shadow[4])
                 state = self.occlude(state, shadow, bounce)
+                self._stage(f"occlude[{bounce}]")
         return self.pixel_sums(state)
 
     def __call__(self, cam: Camera, seed: int, sample0: int):

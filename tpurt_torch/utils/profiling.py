@@ -1,4 +1,18 @@
-"""Where one render batch spends its device time.
+"""Tracing and profiling — port of ``tpurt.utils.profiling``, and where
+one render batch spends its device time.
+
+The reference's helpers, on torch:
+
+  * ``trace(dir)``   — ``torch.profiler`` (CPU, and CUDA where the card is
+                       in use) → a Chrome/Perfetto JSON trace in ``dir``
+                       (open it in ui.perfetto.dev);
+  * ``timed(name)``  — a wall-clock bracket that waits for the current
+                       CUDA device at its exit, so the number covers the
+                       device work queued inside it;
+  * ``frame_log(…)`` — the structured per-frame log line, optionally
+                       appended to a JSONL file.
+
+The per-stage profiler:
 
     python3 -m tpurt_torch.utils.profiling [--preset bunny] [--out FILE]
         [--intersector bvh_tile|bvh_pair|bvh_packet] [--pairs-per-tile K]
@@ -11,9 +25,8 @@ stage of the staged loop (raygen, trace[b], shade[b], occlude[b],
 resolve) and once under ``torch.profiler`` for device time by kernel
 name and the device's busy share of the batch's wall time. With
 ``bvh_packet`` it also reports the walk's counters on the primary wave
-(node steps and leaf rows, summed over its rays). The tile intersector's
-switches are read from the environment (``TPURT_ENTRY_ROWS=0``,
-``TPURT_PAIR_LOOP=0``). Prints one JSON object (and writes it to
+(node steps and leaf rows, summed over its rays). The switches
+(``TPURT_*``) are read from the environment and recorded. Prints one JSON object (and writes it to
 ``--out``) with the card's name and power limit beside every number.
 Needs a CUDA device.
 """
@@ -21,10 +34,73 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import time
+from typing import Optional
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: Optional[bool] = None):
+    """``torch.profiler`` trace of everything inside the block, written to
+    ``log_dir/trace.json`` at its end (the block gets that path). CUDA
+    activity is traced when ``cuda`` is true, by default when a CUDA
+    device is available."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    path = os.path.join(log_dir, "trace.json")
+    with profile(activities=activities) as prof:
+        yield path
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
+@contextlib.contextmanager
+def timed(name: str, sink: Optional[dict] = None, verbose: bool = False):
+    """Wall-clock bracket; at exit it waits for the current CUDA device
+    (where CUDA is initialised) so the time covers the work queued inside
+    (kernels launch asynchronously). Adds the seconds to ``sink[name]``
+    and, ``verbose``, prints them in ms."""
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if sink is not None:
+            sink[name] = sink.get(name, 0.0) + dt
+        if verbose:
+            print(f"[tpurt] {name}: {dt * 1e3:.2f} ms")
+
+
+def frame_log(frame: int, samples: int, rays: float, seconds: float,
+              chips: int = 1, jsonl_path: Optional[str] = None) -> str:
+    """Structured per-frame log line (the reference's keys and rounding);
+    appended to ``jsonl_path`` when one is given."""
+    rec = {
+        "frame": frame,
+        "samples": samples,
+        "rays": int(rays),
+        "mrays_per_s": round(rays / max(seconds, 1e-9) / 1e6, 3),
+        "frame_ms": round(seconds * 1e3, 2),
+        "chips": chips,
+    }
+    line = json.dumps(rec)
+    if jsonl_path:
+        with open(jsonl_path, "a") as f:
+            f.write(line + "\n")
+    return line
 
 
 def _card() -> str:
@@ -147,9 +223,8 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
         "profiled_batch_s": prof_wall,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (prof_wall * 1e3)),
-        "switches": {k: os.environ[k] for k in ("TPURT_ENTRY_ROWS",
-                                                "TPURT_PAIR_LOOP")
-                     if k in os.environ},
+        "switches": {k: v for k, v in os.environ.items()
+                     if k.startswith("TPURT_")},
         "launches": launches,
         "packet_walk": walk,
         "kernels_ms": [{"name": k[:120], "ms": ms, "calls": n}

@@ -169,7 +169,16 @@ Phases, in order; any failure exits nonzero and prints no result:
                 world's kernels. The world's Mrays/s is logged beside the
                 single process's and the nvidia-smi line: ranks sharing
                 one card measure no scaling;
-  8. report   — the kernel JSON line, the nvidia-smi line, and last the
+  8. bench    — ``python -m tpurt_torch.bench`` as a user runs it, from
+                the repository's root, in a session of its own under a
+                wall-clock limit that kills it whole: with its defaults
+                (the bunny, 800×600 × 8 spp in one batch) and as one
+                sponza frame (1920×1080 × 2 spp). Each run's JSON line is
+                logged; it must exit 0 and report ``platform`` "gpu",
+                ``value`` > 0, this card's name and nvidia-smi line, and
+                the ``rays_traced`` that phase 4's bunny and sponza
+                paths counted for the same config;
+  9. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -221,15 +230,6 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def timed_once(fn):
     """``fn()`` and its milliseconds (CUDA events, one call): a plain
     version's result is compared and its time reported from one run."""
@@ -271,7 +271,7 @@ def batch_waves(name: str, device, spp: int, sort: bool):
     config = get_config(name, spp=spp, spp_per_batch=spp)
     scene = load_scene(config.scene)
     meta = scene_meta(scene)
-    ds = to_device(scene, device)
+    ds = to_device(scene, device=device)
     accel = build_accel(config, ds, meta, scene=scene, device=device)
     r = StagedRenderer(ds, accel, meta=meta, config=config, device=device)
     sampler = r.sampler(config.seed, 0)
@@ -1311,7 +1311,8 @@ def environ(env: dict):
 def render_path(name: str, device, paths=PATHS):
     """One batch of the path (``paths[name]``) at its preset's size:
     warmup, then a timed run with the launch counters zeroed just before
-    it. Returns its counts, its accumulated image and its Mrays/s."""
+    it. Returns its counts, its accumulated image and the timed render's
+    stats."""
     import torch
 
     from tpurt_torch import kernels as kn
@@ -1362,7 +1363,7 @@ def render_path(name: str, device, paths=PATHS):
     if not kernels and any(launches.values()):
         raise AssertionError(f"{name}: a plain-torch path launched "
                              f"kernels {launches}")
-    return launches, state.accum, stats["mrays_per_s"]
+    return launches, state.accum, stats
 
 
 def compare_accums(label, got, want, spp: int):
@@ -1614,8 +1615,8 @@ def variants_phase(device, launches: dict, images: dict, base: dict,
 
     got = {}
     for name in VARIANT_PATHS:
-        counts, accum, mrays[name] = render_path(name, device,
-                                                 VARIANT_PATHS)
+        counts, accum, stats = render_path(name, device, VARIANT_PATHS)
+        mrays[name] = stats["mrays_per_s"]
         got[name] = (counts, accum)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -1648,7 +1649,7 @@ def variants_phase(device, launches: dict, images: dict, base: dict,
     # (e) the host build of each clustering at the preset's size
     scene = load_scene("bunny")
     meta = scene_meta(scene)
-    ds = to_device(scene, device)
+    ds = to_device(scene, device=device)
     for mode in ("hier", "kdsah", "kd", "morton"):
         with environ(dict(TPURT_CLUSTERING=mode)):
             t0 = _time.perf_counter()
@@ -2094,7 +2095,8 @@ def files_phase(device, launches: dict, bunny=(800, 600, 8),
     # 4. a hand-written glTF with a texture
     built = fence_gltf(t("fence.gltf"))
     loaded = load_gltf(t("fence.gltf"))
-    a_ds, b_ds = to_device(loaded, "cpu"), to_device(built, "cpu")
+    a_ds = to_device(loaded, device="cpu")
+    b_ds = to_device(built, device="cpu")
     for f in a_ds._fields:
         x, y = getattr(a_ds, f), getattr(b_ds, f)
         if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
@@ -2385,6 +2387,69 @@ def mesh_phase(device, launches: dict, smi: str, sizes=None) -> None:
                                  "the single process's")
 
 
+# the runs of the bench phase: (label, arguments, the phase-4 path of the
+# same config)
+BENCH_RUNS = (
+    ("bunny", (), "bunny"),
+    ("sponza", ("--scene", "sponza", "--width", "1920", "--height", "1080",
+                "--spp", "2", "--spp-per-batch", "2"), "sponza"),
+)
+BENCH_LIMIT_S = 300  # wall clock of one bench run, retries included
+
+
+def bench_phase(rays: dict, smi: str) -> None:
+    """``python -m tpurt_torch.bench`` for each of BENCH_RUNS, from the
+    repository's root in a session of its own (killed whole past
+    BENCH_LIMIT_S); its line must come from this card, with a rate and the
+    ray count of the phase-4 path of the same config (``rays``)."""
+    import signal
+
+    import torch
+
+    for label, args, path in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpurt_torch.bench", *args], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=BENCH_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        log(f"[bench] {label}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for line in lines:
+            log(f"[bench] {label} {line}")
+        if proc.returncode != 0 or len(lines) != 1:
+            log(f"[bench] {label}: its errors end: "
+                + err[-3000:].replace("\n", " | "))
+            raise AssertionError(f"bench {label}: exit {proc.returncode}, "
+                                 f"{len(lines)} JSON lines")
+        line = json.loads(lines[0])
+        detail = line["detail"]
+        want = dict(platform="gpu", gpu=smi,
+                    device=torch.cuda.get_device_name(0),
+                    rays_traced=rays[path])
+        got = {k: detail.get(k) for k in want}
+        if got != want or not line["value"] > 0:
+            raise AssertionError(f"bench {label}: {got} with value "
+                                 f"{line['value']}, want {want} and a "
+                                 "value above 0")
+        log(f"[bench] {label}: {line['value']:.4f} Mrays/s (runs "
+            f"{detail['mrays_min']:.4f} .. {detail['mrays_max']:.4f}), "
+            f"{detail['elapsed_s'] * 1e3:.3f} ms, {detail['rays_traced']:.0f}"
+            f" rays as phase 4's {path} path; warmup {detail['warmup_s']:.3f}"
+            f" s (build {detail['warmup_build_s']:.3f}, scene "
+            f"{detail['warmup_scene_s']:.3f}, other "
+            f"{detail['warmup_other_s']:.3f}); {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2393,6 +2458,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    from tpurt_torch.utils.profiling import nvidia_smi_line
+
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
@@ -2412,9 +2479,10 @@ def main() -> int:
     report = check_kernels(device)
 
     # 4. render: each preset's main path, then the goldens
-    launches, images, mrays, base = {}, {}, {}, {}
+    launches, images, mrays, rays, base = {}, {}, {}, {}, {}
     for name in PATHS:
-        base[name], images[name], mrays[name] = render_path(name, device)
+        base[name], images[name], stats = render_path(name, device)
+        mrays[name], rays[name] = stats["mrays_per_s"], stats["rays_traced"]
         for k, v in base[name].items():
             launches[k] = launches.get(k, 0) + v
     log(f"[render] Mrays/s a path ({smi}): "
@@ -2446,7 +2514,10 @@ def main() -> int:
     for k in report:
         k["launches"] = launches.get(k["name"], 0)
 
-    # 8. report
+    # 8. the port's bench
+    bench_phase(rays, smi)
+
+    # 9. report
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -210,6 +210,7 @@ def main() -> int:
     import torch
 
     from tpurt_torch.kernels import cuda_build
+    from tpurt_torch.utils import profiling
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
@@ -224,7 +225,7 @@ def main() -> int:
         print("k1_paired: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    smi = chip_smoke.nvidia_smi_line()
+    smi = profiling.nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
 
     jobs = {"parent": (os.path.join(args.parent, "tpurt_torch", "csrc"),

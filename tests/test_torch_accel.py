@@ -33,7 +33,7 @@ def test_to_device_byte_equal(scene):
     ref_scene = SCENES[scene](ref_proc)
     port_scene = SCENES[scene](port_proc)
     want = ref_to_device(ref_scene)
-    got = port_to_device(port_scene, "cpu")
+    got = port_to_device(port_scene, device="cpu")
     assert got._fields == want._fields
     for f in want._fields:
         _byte_equal(f, getattr(want, f), getattr(got, f).numpy())
@@ -61,6 +61,6 @@ def test_build_from_device_scene_matches_host_build():
     scene = port_proc.bunny_standin(subdivisions=3)
     meta = port_meta(scene)
     a = port_build(None, meta, scene=scene)
-    b = port_build(port_to_device(scene, "cpu"), meta)
+    b = port_build(port_to_device(scene, device="cpu"), meta)
     for f in a._fields:
         _byte_equal(f, getattr(a, f), getattr(b, f))

@@ -57,7 +57,7 @@ SCENES = {
 
 def _setup(name):
     rs, ps = SCENES[name](ref_proc), SCENES[name](port_proc)
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = ref_build(r_ds, ref_meta(rs), scene=rs)
     p_acc = port_build(p_ds, port_meta(ps), scene=ps).to("cpu")
     assert p_acc.n_clusters <= tw.ALLPAIRS_MAX_CLUSTERS
@@ -199,7 +199,7 @@ def test_presets_take_the_all_pairs_mode():
         cfg = get_config(name)
         scene = SCENES[name](port_proc)
         meta = port_meta(scene)
-        acc = build_accel(cfg, port_to_device(scene, "cpu"), meta,
+        acc = build_accel(cfg, port_to_device(scene, device="cpu"), meta,
                           scene=scene, device="cpu")
         assert acc.n_clusters <= tw.ALLPAIRS_MAX_CLUSTERS, name
         assert getattr(acc, "pair_meta", None) is None
@@ -218,7 +218,7 @@ def test_cornell_pt_first_bounce_per_ray(monkeypatch, tmp_path):
     cfg = get_config("cornell_pt", **over)
     scene = port_proc.cornell_box(path_tracer=True)
     meta = port_meta(scene)
-    ds = port_to_device(scene, "cpu")
+    ds = port_to_device(scene, device="cpu")
     r = StagedRenderer(ds, build_accel(cfg, ds, meta, scene=scene,
                                        device="cpu"),
                        meta=meta, config=cfg, device="cpu")

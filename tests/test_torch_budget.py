@@ -64,7 +64,7 @@ def _setup(name):
         ps = port_proc.sponza_standin(column_segments=8, column_rings=3)
         r_build = ref_pc.build_pair_accel_two_level
         p_build = port_pc.build_pair_accel_two_level
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = r_build(r_ds, ref_meta(rs), scene=rs)
     p_acc = p_build(p_ds, port_meta(ps), scene=ps).to("cpu")
     lo, hi = r_acc.cluster_lo, r_acc.cluster_hi

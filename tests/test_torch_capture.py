@@ -128,7 +128,7 @@ def test_capture_refuses_a_mesh(monkeypatch, tmp_path):
     monkeypatch.setenv("TPURT_CAPTURE_WAVES", str(tmp_path))
     scene = port_bunny(subdivisions=3)
     cfg = get_config("bunny", **SMALL)
-    ds = rd.to_device(scene, "cpu")
+    ds = rd.to_device(scene, device="cpu")
     meta = rd.scene_meta(scene)
     accel = rd.build_accel(cfg, ds, meta, scene=scene, device="cpu")
     with pytest.raises(ValueError, match="single-process"):

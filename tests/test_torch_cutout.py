@@ -131,7 +131,7 @@ def layered():
     tmax[::9] = -1.0  # dead rays
     tmax[1::9] = np.inf
     return dict(rs=rs, ps=ps, r_meta=r_meta, p_meta=p_meta,
-                r_ds=ref_to_device(rs), p_ds=port_to_device(ps, "cpu"),
+                r_ds=ref_to_device(rs), p_ds=port_to_device(ps, device="cpu"),
                 org=org, d=d, tmax=tmax)
 
 
@@ -255,7 +255,7 @@ def test_opaque_scene_keeps_lean_path():
                                           meta=meta) is sentinel
     cfg = get_config("cornell", scene="custom", width=32, height=32,
                      spp=1, spp_per_batch=1, max_bounces=1)
-    ds = port_to_device(ps, "cpu")
+    ds = port_to_device(ps, device="cpu")
     acc = port_build(ds, meta, scene=ps).to("cpu")
     r = StagedRenderer(ds, acc, meta=meta, config=cfg, device="cpu")
     for fn in r.closest + r.occluders:
@@ -263,7 +263,7 @@ def test_opaque_scene_keeps_lean_path():
     cut = add_cutout_quad(port_types, base_scene(port_types, port_camera),
                           checker(), 0.5)
     cmeta = port_meta(cut)
-    cds = port_to_device(cut, "cpu")
+    cds = port_to_device(cut, device="cpu")
     r = StagedRenderer(cds, port_build(cds, cmeta, scene=cut).to("cpu"),
                        meta=cmeta, config=cfg, device="cpu")
     assert all("make_cutout_closest" in fn.__qualname__ for fn in r.closest)

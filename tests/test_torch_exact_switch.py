@@ -39,7 +39,7 @@ from tpurt_torch.utils.config import get_config
 @pytest.fixture(scope="module")
 def bunny():
     rs, ps = ref_bunny(subdivisions=3), port_bunny(subdivisions=3)
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = ref_build(r_ds, ref_meta(rs), scene=rs)
     p_acc = port_build(p_ds, port_meta(ps), scene=ps).to("cpu")
     lo, hi = r_acc.cluster_lo.min(0), r_acc.cluster_hi.max(0)

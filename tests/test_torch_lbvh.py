@@ -76,6 +76,8 @@ def test_build_lbvh_bit_equal(n, leaf_size):
                            leaf_size=leaf_size)
     _assert_tables_equal(ref, port)
     assert int(port.n_active) <= 2 * n - 1
+    assert port.num_prims == ref.num_prims == n
+    assert port.capacity == ref.capacity
 
 
 @pytest.mark.parametrize("leaf_size", [1, 4])
@@ -106,7 +108,7 @@ def _scenes(name):
     build = jax.jit(functools.partial(ref_tl.build_scene_accel, meta=rmeta,
                                       leaf_size=4))
     ps = SCENES[name](procedural)
-    return rds, build(rds), to_device(ps, "cpu"), scene_meta(ps)
+    return rds, build(rds), to_device(ps, device="cpu"), scene_meta(ps)
 
 
 @pytest.mark.parametrize("name", list(SCENES))

@@ -58,7 +58,7 @@ def hits(request):
     samplers = (RefSampler.make(3, jnp.uint32(16), jnp.asarray(pid)),
                 PortSampler.make(3, 16, T(pid.astype(np.int64))))
     return dict(r=r_attrs, p=p_attrs, d=d, org=org, samplers=samplers,
-                r_ds=ref_to_device(rs), p_ds=port_to_device(ps, "cpu"))
+                r_ds=ref_to_device(rs), p_ds=port_to_device(ps, device="cpu"))
 
 
 def _eq(got, want, name):

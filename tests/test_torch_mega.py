@@ -55,7 +55,7 @@ def both_batches(preset, scene_fn, **over):
     rs, ps = scene_fn(ref_proc), scene_fn(procedural)
     rc, pc = ref_config(preset, **over), get_config(preset, **over)
     rmeta, pmeta = ref_meta(rs), scene_meta(ps)
-    rds, pds = ref_to_device(rs), to_device(ps, "cpu")
+    rds, pds = ref_to_device(rs), to_device(ps, device="cpu")
     racc = ref_build_accel(rc, rds, rmeta, scene=rs)
     pacc = build_accel(pc, pds, pmeta, scene=ps, device="cpu")
     want, wrays = ref_render_batch(rds, rs.camera, jnp.uint32(SEED),

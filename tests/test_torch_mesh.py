@@ -48,7 +48,7 @@ CPU = torch.device("cpu")
 def _setup(scene, preset, **over):
     cfg = get_config(preset, **over)
     meta = scene_meta(scene)
-    ds = to_device(scene, "cpu")
+    ds = to_device(scene, device="cpu")
     return cfg, meta, ds
 
 
@@ -237,3 +237,20 @@ def test_make_render_mesh_needs_a_world(n_sample, n_tile):
     with pytest.raises(ValueError, match=f"world of {need} ranks") as e:
         make_render_mesh(n_sample, n_tile, device="cpu")
     assert "--multihost" in str(e.value) and "torchrun" in str(e.value)
+
+
+def test_make_render_mesh_takes_the_reference_call():
+    """The reference's call (``n_sample_shards``, ``n_tile_shards``,
+    ``devices``) in one process, a world of one rank: rank 0 on
+    ``devices[0]``, and its merge is the shard itself, with no group to
+    gather over; a ``devices`` list shorter than the mesh raises, as the
+    reference's does."""
+    mesh = make_render_mesh(n_sample_shards=1, n_tile_shards=1,
+                            devices=["cpu"])
+    assert mesh == RenderMesh(1, 1, 0, CPU)
+    assert make_render_mesh(1, 1, None, device="cpu") == mesh
+    part, counts = torch.arange(6.0).reshape(2, 3), torch.ones(4)
+    total, total_counts = mesh.merge(part, counts)
+    assert torch.equal(total, part) and torch.equal(total_counts, counts)
+    with pytest.raises(ValueError, match="need 1 devices"):
+        make_render_mesh(1, 1, [])

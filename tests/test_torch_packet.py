@@ -89,6 +89,43 @@ def test_packet_accel_matches_reference(name, native):
     assert got.node_count[leaves].sum() == got.n_rows
 
 
+@pytest.mark.parametrize("leaf_rows", [1, 2])
+def test_packet_accel_leaf_rows_matches_reference(bunny_walk, leaf_rows):
+    """An explicit leaf size, passed as the reference's callers pass it
+    (positionally, before ``scene``): every table byte-equal to the
+    reference's build of that size, and the walk's plain version finds
+    on it the hits it finds on the automatic build (one-row leaves)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPURT_NO_NATIVE", "1")
+        mp.setattr(ref_native, "_tried", False)
+        rs = SCENES["bunny"](ref_proc)
+        want = ref_build(ref_to_device(rs), ref_meta(rs), leaf_rows, rs)
+        ps = SCENES["bunny"](port_proc)
+        got = build_packet_accel(None, port_meta(ps), leaf_rows, ps)
+    for f in got._fields:
+        a, b = getattr(got, f), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert a.tobytes() == b.tobytes(), f
+    assert got.n_rows % leaf_rows == 0
+    assert got.node_count[got.node_count > 0].min() == leaf_rows
+
+    w = bunny_walk
+    t = torch.from_numpy
+    tables = tuple(got.to("cpu")[:10])
+    auto = tuple(w["p_acc"][:10])
+    for any_hit, tmax in ((False, w["tmax"]), (True, w["shadow_tmax"])):
+        args = (t(w["org"]), t(w["d"]), t(tmax))
+        a = pk._trace(*args, tables, any_hit=any_hit, ray_sort="none")
+        b = pk._trace(*args, auto, any_hit=any_hit, ray_sort="none")
+        if any_hit:
+            assert torch.equal(a[0], b[0])
+            continue
+        hit = b[3] >= 0
+        assert torch.equal(a[3] >= 0, hit) and int(hit.sum()) > 300
+        assert torch.equal(a[0][hit], b[0][hit])  # the same closest t
+        assert float((a[3] == b[3])[hit].float().mean()) >= 0.999
+
+
 @pytest.fixture(scope="module")
 def bunny_walk():
     """bunny_standin(3) (215 nodes over 108 one-row leaves) in both
@@ -163,7 +200,7 @@ def test_packet_closures(bunny_walk):
     refuses CPU tensors."""
     w = bunny_walk
     ps = SCENES["bunny"](port_proc)
-    ds = port_to_device(ps, "cpu")
+    ds = port_to_device(ps, device="cpu")
     closest, any_hit = pk.make_packet_intersector(ds, w["p_acc"],
                                                   ray_sort="octant")
     assert not hasattr(closest, "with_stats")

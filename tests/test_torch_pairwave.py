@@ -60,7 +60,7 @@ def _setup(name):
     """bunny_standin(3) (14 clusters) or the Cornell box with glass and
     glossy boxes (1 cluster), flat accel, in both packages."""
     rs, ps = SCENES[name](ref_proc), SCENES[name](port_proc)
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = ref_build(r_ds, ref_meta(rs), scene=rs)
     p_acc = port_build(p_ds, port_meta(ps), scene=ps).to("cpu")
     lo, hi = r_acc.cluster_lo, r_acc.cluster_hi

@@ -194,20 +194,23 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_entry_points_default_to_the_card():
-    """to_device, build_accel, new_frame_state, render_scene and
-    render_to_png run on the card unless the caller asks for the CPU:
-    without one, each raises rather than falling back."""
+    """to_device, build_accel, make_staged_renderer, new_frame_state,
+    render_scene and render_to_png run on the card unless the caller asks
+    for the CPU: without one, each raises rather than falling back."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from tpurt_torch.render import build_accel, render_to_png
     from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.render.staged import make_staged_renderer
     from tpurt_torch.scene.device import to_device
 
     scene = bunny_standin(subdivisions=3)
     cfg = get_config("bunny", **SMALL)
+    meta = scene_meta(scene)
+    ds = to_device(scene, device="cpu")
     calls = (lambda: to_device(scene),
-             lambda: build_accel(cfg, to_device(scene, "cpu"),
-                                 scene_meta(scene), scene=scene),
+             lambda: build_accel(cfg, ds, meta, scene=scene),
+             lambda: make_staged_renderer(ds, None, meta=meta, config=cfg),
              lambda: fb.new_frame_state(8, 6),
              lambda: render_scene(cfg, scene=scene),
              lambda: render_to_png(cfg, os.devnull))
@@ -215,3 +218,29 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert fb.new_frame_state(8, 6, device="cpu").accum.device.type == "cpu"
+
+
+def test_make_staged_renderer_is_the_staged_loop():
+    """The reference's factory, called as the reference calls it, gives
+    the batch of StagedRenderer with the same arguments, bit for bit."""
+    from tpurt_torch.render import build_accel
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.render.staged import (StagedRenderer,
+                                           make_staged_renderer)
+    from tpurt_torch.scene.device import to_device
+
+    scene = bunny_standin(subdivisions=3)
+    cfg = get_config("bunny", **SMALL)
+    meta = scene_meta(scene)
+    ds = to_device(scene, device="cpu")
+    accel = build_accel(cfg, ds, meta, scene=scene, device="cpu")
+    made = make_staged_renderer(ds, accel, meta=meta, config=cfg,
+                                mesh=None, device="cpu")
+    assert isinstance(made, StagedRenderer)
+    got = made(scene.camera, cfg.seed, 0)
+    want = StagedRenderer(ds, accel, meta=meta, config=cfg,
+                          device="cpu")(scene.camera, cfg.seed, 0)
+    assert got[0].shape == (cfg.height, cfg.width, 3)
+    assert float(got[1][0]) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

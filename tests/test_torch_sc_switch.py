@@ -44,7 +44,7 @@ SCENES = {
 def scene(request):
     make, build = SCENES[request.param]
     rs, ps = make(ref_proc), make(port_proc)
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = getattr(ref_pc, build)(r_ds, ref_meta(rs), scene=rs)
     p_acc = getattr(port_pc, build)(p_ds, port_meta(ps), scene=ps).to("cpu")
     lo, hi = r_acc.cluster_lo.min(0), r_acc.cluster_hi.max(0)

@@ -83,7 +83,7 @@ def test_config_switch_matches_environment(monkeypatch):
     cfg = get_config("bunny", sorted_wave=True, **SMALL)
     scene = bunny_standin(subdivisions=3)
     meta = scene_meta(scene)
-    ds = to_device(scene, "cpu")
+    ds = to_device(scene, device="cpu")
     accel = build_pair_accel(ds, meta, scene=scene).to("cpu")
     assert StagedRenderer(ds, accel, meta=meta, config=cfg,
                           device="cpu").sorted
@@ -144,7 +144,7 @@ def test_adequate_caps_cut_the_wave_bit_identical(monkeypatch):
     capped = dataclasses.replace(cfg, live_caps=caps)
     monkeypatch.setenv("TPURT_SORTED_WAVE", "1")
     meta = scene_meta(scene)
-    ds = to_device(scene, "cpu")
+    ds = to_device(scene, device="cpu")
     r = StagedRenderer(ds, build_pair_accel(ds, meta, scene=scene).to("cpu"),
                        meta=meta, config=capped, device="cpu")
     assert r.sorted and any(0 < c < r.n for c in r.sorted_caps)
@@ -180,7 +180,7 @@ def test_morton_sort_matches_reference_on_a_bounce_wave(monkeypatch):
                      max_bounces=1)
     scene = bunny_standin(subdivisions=3)
     meta = scene_meta(scene)
-    ds = to_device(scene, "cpu")
+    ds = to_device(scene, device="cpu")
     accel = build_pair_accel(ds, meta, scene=scene).to("cpu")
     r = StagedRenderer(ds, accel, meta=meta, config=cfg, device="cpu")
     state = r.raygen(scene.camera, cfg.seed, 0)

@@ -84,7 +84,7 @@ def textured_scene(ty):
 def scenes():
     rs, ps = textured_scene(ref_types), textured_scene(port_types)
     return dict(rs=rs, ps=ps, r_ds=ref_to_device(rs),
-                p_ds=port_to_device(ps, "cpu"))
+                p_ds=port_to_device(ps, device="cpu"))
 
 
 def _lookups(rng, n_tex):
@@ -200,7 +200,7 @@ def test_untextured_scene_skips_the_gather(monkeypatch):
     from tpurt_torch.scene import procedural
 
     ps = procedural.cornell_box(path_tracer=True)
-    ds = port_to_device(ps, "cpu")
+    ds = port_to_device(ps, device="cpu")
     assert ds.tex_data.shape[0] == 1
 
     def boom(*a, **k):
@@ -241,7 +241,7 @@ def textured_quad_scene(tex=None, albedo=(1.0, 1.0, 1.0)):
 
 
 def test_sampler_nearest_wrap_and_fallback():
-    ds = port_to_device(textured_quad_scene(), "cpu")
+    ds = port_to_device(textured_quad_scene(), device="cpu")
     tid = torch.tensor([0, 0, 0, 0, 0, -1], dtype=torch.int32)
     # texture v=0 is the TOP image row (glTF convention)
     tu = torch.tensor([0.25, 0.75, 0.25, 0.75, 1.25, 0.5])
@@ -259,7 +259,7 @@ def test_bilinear_sampler_analytic():
     texel centers; REPEAT wraps the outer halves toward the opposite
     texel."""
     ds = port_to_device(textured_quad_scene(
-        tex=np.array([[[0, 0, 0], [1, 1, 1]]], np.float32)), "cpu")
+        tex=np.array([[[0, 0, 0], [1, 1, 1]]], np.float32)), device="cpu")
     tid = torch.zeros(5, dtype=torch.int32)
     tu = torch.tensor([0.25, 0.75, 0.5, 0.375, 0.625])
     tv = torch.full((5,), 0.5)

@@ -43,7 +43,7 @@ def bunny():
     rs, ps = ref_bunny(subdivisions=3), port_bunny(subdivisions=3)
     r_ds = ref_to_device(rs)
     r_accel = ref_build(r_ds, ref_meta(rs), scene=rs)
-    p_ds = port_to_device(ps, "cpu")
+    p_ds = port_to_device(ps, device="cpu")
     p_accel = port_build(p_ds, port_meta(ps), scene=ps).to("cpu")
     lo, hi = r_accel.cluster_lo, r_accel.cluster_hi
     diag = float(np.linalg.norm(hi.max(0) - lo.min(0)))

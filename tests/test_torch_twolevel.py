@@ -82,7 +82,7 @@ def _setup(name):
     """The scene, its device copy and two-level accel, in both packages."""
     rs, ps = SCENES[name](ref_proc), SCENES[name](port_proc)
     r_meta, p_meta = ref_meta(rs), port_meta(ps)
-    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, "cpu")
+    r_ds, p_ds = ref_to_device(rs), port_to_device(ps, device="cpu")
     r_acc = ref_pc.build_pair_accel_two_level(r_ds, r_meta, scene=rs)
     p_host = port_pc.build_pair_accel_two_level(p_ds, p_meta, scene=ps)
     lo, hi = r_acc.cluster_lo, r_acc.cluster_hi
@@ -122,7 +122,7 @@ def test_build_accel_picks_two_level_as_reference():
                 ref_config(name, instancing=inst, intersector="bvh_tile"),
                 ref_to_device(rs), ref_meta(rs), scene=rs)
             got = build_accel(get_config(name, instancing=inst),
-                              port_to_device(ps, "cpu"), port_meta(ps),
+                              port_to_device(ps, device="cpu"), port_meta(ps),
                               scene=ps, device="cpu")
             assert type(got).__name__ == type(want).__name__, (name, inst)
 
@@ -310,7 +310,7 @@ def test_resolve_hit_packed_tl(scene):
         jnp.asarray(acc.shade_rows), jnp.asarray(acc.inst_table),
         *map(jnp.asarray, (org, d, tt, u, v, slot, inst)))
     T = torch.from_numpy
-    got = port_mat.make_resolver(port_to_device(ps, "cpu"), p_acc)(
+    got = port_mat.make_resolver(port_to_device(ps, device="cpu"), p_acc)(
         T(org), T(d), T(tt), T(u), T(v), None, T(inst), T(slot))
     for f in ref_mat.HitAttrs._fields:
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))

@@ -37,7 +37,7 @@ SEED = 7
 
 def _port(config, scene):
     meta = scene_meta(scene)
-    ds = to_device(scene, "cpu")
+    ds = to_device(scene, device="cpu")
     return ds, meta, build_accel(config, ds, meta, scene=scene,
                                  device="cpu")
 

@@ -186,9 +186,11 @@ def _host_tris(ds, meta, scene=None):
         ds.tri_v0, ds.tri_v1, ds.tri_v2, ds.inst_transform))
 
 
-def build_packet_accel(ds, meta, scene=None) -> PacketAccel:
+def build_packet_accel(ds, meta, leaf_rows: int | None = None,
+                       scene=None) -> PacketAccel:
     """Flatten instances → Morton sort → pack rows → median-split tree,
-    with the fewest rows a leaf that keep the tree in the node budget."""
+    with ``leaf_rows`` rows a leaf, by default the fewest that keep the
+    tree in the node budget."""
     tv0, tv1, tv2, inst_tf = _host_tris(ds, meta, scene)
     v0l, v1l, v2l, tril, instl = [], [], [], [], []
     for inst_id, mesh_id in enumerate(meta.inst_mesh):
@@ -217,8 +219,9 @@ def build_packet_accel(ds, meta, scene=None) -> PacketAccel:
     tri_id, inst_id = tri_id[order], inst_id[order]
 
     n_rows = -(-t // TPR)
-    # largest tree whose ~2·leaves nodes fit the node budget
-    leaf_rows = max(1, -(-n_rows // (SMEM_NODE_BUDGET // 2)))
+    if leaf_rows is None:
+        # largest tree whose ~2·leaves nodes fit the node budget
+        leaf_rows = max(1, -(-n_rows // (SMEM_NODE_BUDGET // 2)))
     n_leaves = -(-n_rows // leaf_rows)
     n_rows = n_leaves * leaf_rows  # pad rows so leaves are uniform
     slots = n_rows * TPR

@@ -52,6 +52,10 @@ class Bvh(NamedTuple):
     def capacity(self) -> int:
         return self.bmin.shape[0]
 
+    @property
+    def num_prims(self) -> int:
+        return self.perm.shape[0]
+
 
 def _expand_bits10(v: torch.Tensor) -> torch.Tensor:
     """The low 10 bits of v spread two zero bits apart (int64 lanes)."""

@@ -142,6 +142,8 @@ class RenderMesh:
     def all_gather(self, x: torch.Tensor) -> list:
         """Every rank's ``x`` (one shape on every rank), in rank order, on
         this rank's device; gloo gathers through the host."""
+        if self.n_sample * self.n_tile == 1:
+            return [x.to(self.device)]
         src = (x if self.backend == "nccl" else x.cpu()).contiguous()
         out = [torch.empty_like(src) for _ in range(self.n_sample
                                                      * self.n_tile)]
@@ -173,11 +175,15 @@ def merge_shards(parts, counts, n_sample: int, n_tile: int):
     return torch.cat(tiles), total_counts
 
 
-def make_render_mesh(n_sample: int = 1, n_tile: int = 1,
-                     device="cuda") -> RenderMesh:
-    """This rank's view of an ``n_sample`` × ``n_tile`` mesh over the
-    world of ranks, one a shard; ValueError where the world's size is not
-    ``n_sample * n_tile`` (a single process has a world of one)."""
+def make_render_mesh(n_sample_shards: int = 1, n_tile_shards: int = 1,
+                     devices=None, *, device="cuda") -> RenderMesh:
+    """This rank's view of an ``n_sample_shards`` × ``n_tile_shards`` mesh
+    over the world of ranks, one a shard; ValueError where the world's
+    size is not ``n_sample_shards * n_tile_shards`` (a single process has
+    a world of one). ``devices``, where given, lists the ranks' devices
+    (rank r on ``devices[r]``); else every rank takes ``rank_device(device,
+    rank)``."""
+    n_sample, n_tile = n_sample_shards, n_tile_shards
     need = n_sample * n_tile
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != need:
@@ -188,9 +194,18 @@ def make_render_mesh(n_sample: int = 1, n_tile: int = 1,
             "--multihost ..., or python -m tpurt_torch render --multihost "
             f"--coordinator HOST:PORT --num-processes {need} --process-id I "
             "... once for each rank I")
-    rank = dist.get_rank()
-    return RenderMesh(n_sample, n_tile, rank, rank_device(device, rank),
-                      dist.get_backend())
+    if not dist.is_initialized():  # a world of one: no group to gather
+        rank, backend = 0, "gloo"
+    else:
+        rank, backend = dist.get_rank(), dist.get_backend()
+    if devices is not None:
+        if len(devices) < need:
+            raise ValueError(f"need {need} devices for a {n_sample}x"
+                             f"{n_tile} mesh, have {len(devices)}")
+        mine = torch_device(devices[rank])
+    else:
+        mine = rank_device(device, rank)
+    return RenderMesh(n_sample, n_tile, rank, mine, backend)
 
 
 def distributed_spec(config: RenderConfig, mesh: Optional[RenderMesh]):

@@ -167,7 +167,7 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
     if ctx is None or ctx["scene"] is not scene:
         _SCENE_CACHE.clear()
         meta = scene_meta(scene)
-        ds = to_device(scene, device)
+        ds = to_device(scene, device=device)
         accel = build_accel(config, ds, meta, scene=scene, device=device)
         ctx = {"scene": scene, "meta": meta, "ds": ds, "accel": accel}
         _SCENE_CACHE[key] = ctx
@@ -179,14 +179,14 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
 
 def render_scene(
     config: RenderConfig,
-    *,
-    device="cuda",
     scene=None,
     camera: Optional[Camera] = None,
     state: Optional[fb.FrameState] = None,
     verbose: bool = False,
     readback_stats: bool = True,
     max_budget_retries: int = 3,
+    *,
+    device="cuda",
 ):
     """Render ``config.spp`` samples progressively on ``device`` (the card
     unless the caller asks for the CPU); returns (FrameState, stats).
@@ -303,10 +303,10 @@ def _make_renderer(config, ctx, device, mesh=None):
     ds, accel, meta = ctx["ds"], ctx["accel"], ctx["meta"]
     pipeline = config.resolved_pipeline()
     if pipeline == "staged":
-        from tpurt_torch.render.staged import StagedRenderer
+        from tpurt_torch.render.staged import make_staged_renderer
 
-        return StagedRenderer(ds, accel, meta=meta, config=config,
-                              device=device, mesh=mesh)
+        return make_staged_renderer(ds, accel, meta=meta, config=config,
+                                    mesh=mesh, device=device)
     if mesh is not None:
         from tpurt_torch.parallel.mesh import (distributed_spec,
                                                render_batch_distributed)
@@ -424,8 +424,8 @@ def estimate_rays(config: RenderConfig) -> int:
     return config.width * config.height * per_path
 
 
-def render_to_png(name_or_config, path: str, *, device="cuda",
-                  verbose: bool = False, **overrides):
+def render_to_png(name_or_config, path: str, verbose: bool = False, *,
+                  device="cuda", **overrides):
     """One-call demo: preset/config → PNG file, rendered on ``device``
     (the card unless the caller asks for the CPU)."""
     config = (

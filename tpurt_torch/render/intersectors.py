@@ -13,7 +13,7 @@ kernel tests hold the tile intersector against.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,6 +63,9 @@ class Hit(NamedTuple):
     # flattened world-space prim slot of a cluster accel (indexes
     # PairAccel.shade_rows), -1 when the intersector has no such table
     slot: Optional[torch.Tensor] = None
+
+
+Intersector = Callable[..., Hit]
 
 
 def transform_ray(inv: torch.Tensor, org: torch.Tensor, dirn: torch.Tensor):

@@ -69,6 +69,7 @@ from tpurt_torch.render.integrator import (
     traced,
 )
 from tpurt_torch.render.intersectors import SceneMeta
+from tpurt_torch.scene.device import torch_device
 from tpurt_torch.utils.config import RenderConfig
 
 
@@ -116,7 +117,7 @@ class StagedRenderer:
         self.ds = ds
         self.config = config
         self.mesh = mesh
-        self.device = device = torch.device(device)
+        self.device = device = torch_device(device)
         w, h = config.width, config.height
         spp = config.spp_per_batch
         mb = config.max_bounces
@@ -435,3 +436,12 @@ class StagedRenderer:
 
     def __call__(self, cam: Camera, seed: int, sample0: int):
         return self.frame(*self.shard(cam, seed, sample0))
+
+
+def make_staged_renderer(ds, accel, *, meta: SceneMeta, config: RenderConfig,
+                         mesh=None, device="cuda") -> StagedRenderer:
+    """The reference's factory, with its keywords: the staged loop's batch
+    ``render_batch(cam, seed, sample0) -> ((H, W, 3) sum, counters)`` on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return StagedRenderer(ds, accel, meta=meta, config=config,
+                          device=device, mesh=mesh)

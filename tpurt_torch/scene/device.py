@@ -116,7 +116,8 @@ def torch_device(device) -> torch.device:
     return device
 
 
-def to_device(scene: Scene, device="cuda", pad_to: int = 8) -> DeviceScene:
+def to_device(scene: Scene, pad_to: int = 8, *,
+              device="cuda") -> DeviceScene:
     """Pack a host Scene into a DeviceScene on ``device`` (the card unless
     the caller asks for the CPU)."""
     device = torch_device(device)

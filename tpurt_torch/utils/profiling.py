@@ -103,7 +103,10 @@ def frame_log(frame: int, samples: int, rays: float, seconds: float,
     return line
 
 
-def _card() -> str:
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: the
+    line every time measured on the card is reported beside."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -165,7 +168,7 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
                         **overrides)
     scene = load_scene(config.scene)
     meta = scene_meta(scene)
-    ds = to_device(scene, device)
+    ds = to_device(scene, device=device)
     accel = build_accel(config, ds, meta, scene=scene, device=device)
     renderer = StagedRenderer(ds, accel, meta=meta, config=config,
                               device=device)
@@ -208,7 +211,7 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
         walk = {"primary_rays": state.org.shape[0], "node_steps": steps,
                 "leaf_rows": leaf_rows}
     return {
-        "card": _card(),
+        "card": nvidia_smi_line(),
         "preset": preset,
         "resolution": f"{config.width}x{config.height}",
         "spp_per_batch": config.spp_per_batch,

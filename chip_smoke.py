@@ -88,7 +88,20 @@ Phases, in order; any failure exits nonzero and prints no result:
                 have launched, it must end without overflow, and the image
                 must be finite and bit-equal to the warmup's (same seed).
                 Each path's Mrays/s is logged beside the card's
-                nvidia-smi name and power limit.
+                nvidia-smi name and power limit. The staged paths run
+                the default loop, the stage programs as CUDA graphs
+                where the path allows (phase 9): the warmup's renderer
+                captures them (``prewarm``) and the timed run replays
+                them, its launches counted a replay; a render that
+                builds its renderer (bunny_budget's retries) also counts
+                its prewarm's warm-up batch. A replay runs no Python:
+                a graph adds what its capture counted. So each graph of
+                a staged path's renderer is held to the kernel nodes
+                libcuda holds for it (``check_graph_nodes``: the
+                run's graphs keep their cudaGraph_t, read through
+                cuGraphGetNodes and cuFuncGetName): per device kernel,
+                the nodes must equal the capture's count. The fence and
+                the flythrough (phase 6) are held the same way.
                 Then the golden fixtures on the card against
                 tests/golden/data/*.npz: bunny (also through bvh_pair,
                 bvh_packet, TPURT_ENTRY_ROWS=0, TPURT_PAIR_LOOP=0 and the
@@ -178,7 +191,35 @@ Phases, in order; any failure exits nonzero and prints no result:
                 ``value`` > 0, this card's name and nvidia-smi line, and
                 the ``rays_traced`` that phase 4's bunny and sponza
                 paths counted for the same config;
-  9. report   — the kernel JSON line, the nvidia-smi line, and last the
+  9. graphs   — the reference's stage programs as CUDA graphs
+                (``render/staged.py``; every phase above already runs
+                them, the default): bunny, sponza (1920×1080 × 2 spp),
+                cornell, hello_triangle, bunny_sorted, bunny_packet and
+                the cut-out fence, each at its preset's size with its
+                measured caps, through one StagedRenderer a loop: the
+                unfused loop eagerly and as graphs (TPURT_FUSE_STAGES=0),
+                the stage programs eagerly and as graphs (the default),
+                and the whole batch eagerly and as a graph
+                (TPURT_FUSE_BOUNCES=1; not for flat shading or the sorted
+                loop). Flat shading runs every loop eagerly (its
+                ``graph_reason``). Three batches each — the first sample
+                0, then spp, then a moved camera — so the graphs replay
+                with their input buffers refilled; the unfused and stage
+                graphs captured by ``prewarm``, the whole batch's by its
+                first batch. Each graph mode must be bit-equal, image and
+                counters, to its split run eagerly and count the same
+                launches a batch, its graphs held to their kernel nodes
+                as in phase 4; the stage
+                split bit-equal to the unfused loop; the whole batch
+                (uncapped waves) within RMSE 1e-3 of the default loop
+                (under 2% of pixels off by more than 1e-3), the counters
+                that differ logged. Logged: each loop's mode, graphs and
+                ``graph_reason``, graphs and capture seconds a path,
+                Mrays/s of the eager loop and the unfused, stage and
+                whole-batch graphs in turns, and the bunny batch's device idle share
+                (``torch.profiler``) eager and as graphs. Phase 4 logs
+                each staged path's loop and, where it runs eagerly, why;
+ 10. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -1264,15 +1305,25 @@ def wave_log():
     """Record, per wave traced inside the block, what the budget paths
     measure: the tile intersector's per-tile entry counts before its clamp
     (maximum, mean, overflow) and the pair intersector's live pairs per
-    alive ray (and overflow)."""
+    alive ray (and overflow). A wave traced while a CUDA graph is being
+    captured is not read (the host may not read it then): the staged
+    loop's warm-up run of the same stage, just before, logged it."""
+    import torch
+
     from tpurt_torch.kernels import pairwave as pw
     from tpurt_torch.kernels import tilewave as tw
+
+    def capturing():
+        return (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing())
 
     rows = []
     clamp_rows, cull_expand = tw._clamp_rows, pw._cull_expand
 
     def clamp_logged(mask, pairs_per_tile):
         out = clamp_rows(mask, pairs_per_tile)
+        if capturing():
+            return out
         raw = mask.sum(dim=1).float()
         rows.append(f"max {int(raw.max())} mean {float(raw.mean()):.1f} "
                     f"entries/tile{' OVERFLOW' if bool(out[2]) else ''}")
@@ -1280,6 +1331,8 @@ def wave_log():
 
     def cull_logged(org, dirn, tmax, lo, hi, **kw):
         out = cull_expand(org, dirn, tmax, lo, hi, **kw)
+        if capturing():
+            return out
         alive = int((tmax >= 0).sum())
         rows.append(f"{float(out[4]) / max(alive, 1):.3f} pairs/ray of "
                     f"{alive}{' OVERFLOW' if bool(out[5]) else ''}")
@@ -1306,6 +1359,138 @@ def environ(env: dict):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def staged_renderer():
+    """The staged renderer render_scene last built and kept, or None
+    (the megakernel and wavefront loops keep a function)."""
+    from tpurt_torch import render as rd
+    from tpurt_torch.render.staged import StagedRenderer
+
+    for ctx in rd._SCENE_CACHE.values():
+        r = ctx.get("renderer") if isinstance(ctx, dict) else None
+        if isinstance(r, StagedRenderer):
+            return r
+    return None
+
+
+# the device kernel behind each launch counter (tpurt_torch/csrc/*.cu): K2
+# and K3 are slab_kernel<true> / <false>, K1's modes and K4 are
+# tileloop_kernel, K6 pair_kernel, K5 packet_kernel
+DEVICE_KERNELS = ("slab_kernel", "tileloop_kernel", "pair_kernel",
+                  "packet_kernel")
+# the wrappers whose ``.launches`` name their kernel (tileloop_cuda's
+# modes are counted by name in ``.variant_launches``)
+WRAPPER_COUNTER = {"entries_cuda": "entries", "exact_mask_cuda": "exact_mask",
+                   "pair_test_cuda": "pair", "packet_cuda": "packet"}
+
+
+def kernel_of_counter(key: str) -> str:
+    if key.startswith(("tileloop", "tilegrid")):
+        return "tileloop_kernel"
+    return {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
+            "pair": "pair_kernel", "packet": "packet_kernel"}[key]
+
+
+def by_device_kernel(counts: dict) -> dict:
+    """Launch counters (``launch_counts()``'s keys) summed by the device
+    kernel they launch."""
+    out = {}
+    for k, n in counts.items():
+        if n:
+            out[kernel_of_counter(k)] = out.get(kernel_of_counter(k), 0) + n
+    return out
+
+
+def kernel_of_symbol(symbol: str):
+    """The DEVICE_KERNELS name of a mangled kernel symbol (slab_kernel split
+    by its template argument), or None for another kernel."""
+    import re
+
+    m = re.search(r"\d(" + "|".join(DEVICE_KERNELS) + r")(ILb[01]E)?",
+                  symbol)
+    if m is None:
+        return None
+    if m.group(1) == "slab_kernel":
+        return "slab_kernel" + ("<true>" if m.group(2) == "ILb1E"
+                                else "<false>")
+    return m.group(1)
+
+
+def keep_graphs() -> None:
+    """From here on, every CUDA graph the run captures keeps its
+    ``cudaGraph_t`` (``keep_graph=True``), so ``graph_kernel_nodes`` can
+    read it."""
+    import torch
+
+    made = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda *a, **k: made(*a, keep_graph=True, **k)
+
+
+def graph_kernel_nodes(graph) -> dict:
+    """The kernel nodes of a captured graph, by DEVICE_KERNELS name, read
+    through libcuda (cuGraphGetNodes, cuGraphKernelNodeGetParams,
+    cuFuncGetName or, for a library kernel, cuKernelGetName)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{fn.__name__} failed: CUresult {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes, handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call(cu.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_byte * 128)()
+        call(cu.cuGraphKernelNodeGetParams_v2, ctypes.c_void_p(node), params)
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, 56).value
+        symbol = ctypes.c_char_p()
+        if func:
+            call(cu.cuFuncGetName, ctypes.byref(symbol), ctypes.c_void_p(func))
+        else:
+            call(cu.cuKernelGetName, ctypes.byref(symbol),
+                 ctypes.c_void_p(kern))
+        name = kernel_of_symbol(symbol.value.decode())
+        if name is not None:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def check_graph_nodes(label: str, renderer) -> None:
+    """A replay runs no Python, so the launches a graph adds on replay
+    are its capture's tally: hold each graph's tally to the kernel nodes
+    libcuda holds for it (captured after ``keep_graphs``)."""
+    total = {}
+    for k, (graph, tally) in enumerate(renderer._graphs):
+        counts = {}
+        for (fn, attr, key), n in tally.items():
+            if attr == "launches" and fn.__name__ == "tileloop_cuda":
+                continue  # its modes are counted by name
+            key = key if attr == "variant_launches" else \
+                WRAPPER_COUNTER[fn.__name__]
+            counts[key] = counts.get(key, 0) + n
+        want, nodes = by_device_kernel(counts), graph_kernel_nodes(graph)
+        if nodes != want:
+            raise AssertionError(f"{label}: graph {k} holds the kernel "
+                                 f"nodes {nodes}, its capture counted "
+                                 f"{want}")
+        for name, n in nodes.items():
+            total[name] = total.get(name, 0) + n
+    log(f"[graphs] {label}: the kernel nodes of its "
+        f"{len(renderer._graphs)} graphs, each equal to its capture's "
+        f"count (a replay's launches): {total}")
 
 
 def render_path(name: str, device, paths=PATHS):
@@ -1335,6 +1520,13 @@ def render_path(name: str, device, paths=PATHS):
     img = fb.resolve(state)
     finite = bool(torch.isfinite(img).all())
     same = bool(torch.equal(warm.accum, state.accum))
+    r = staged_renderer()
+    if r is not None:
+        log(f"[render] {name}: loop {r.mode}, stage graphs {r.graphs}"
+            + (f" ({len(r.programs())} a batch)" if r.graphs else "")
+            + (f"; eager: {r.graph_reason}" if r.graph_reason else ""))
+        if r.graphs:
+            check_graph_nodes(name, r)
     log(f"[render] {name} {config.width}x{config.height} x {stats['spp']} "
         f"spp{' ' + str(env) if env else ''}: {stats['rays_traced']:.0f} rays ({stats['rays_closest']:.0f} "
         f"closest + {stats['rays_shadow']:.0f} shadow) in "
@@ -1777,7 +1969,8 @@ def cutout_twin_check(device, width, height, spp, subdivisions=6,
     ``width``×``height`` × ``spp`` (2 bounces, NEE), each once as warmup
     and once with the launch counters zeroed around it; hold each pair
     to CUTOUT_RMSE. Returns {intersector: (cut-out stats, twin stats,
-    cut-out launches)}."""
+    cut-out launches)}; on the card the cut-out renderer's graphs are
+    held to their kernel nodes."""
     from tpurt_torch import kernels as kn
     from tpurt_torch.render import framebuffer as fb
     from tpurt_torch.render import render_scene
@@ -1801,6 +1994,9 @@ def cutout_twin_check(device, width, height, spp, subdivisions=6,
             kn.reset_launch_counts()
             state, stats = render_scene(cfg, device=device, scene=scene)
             runs.append((state, stats, kn.launch_counts()))
+            r = staged_renderer()
+            if scene is cut and r is not None and r.graphs:
+                check_graph_nodes(f"fence {kind}", r)
         (a, sa, la), (b, sb, _) = runs
         for name, s in (("cut-out", sa), ("twin", sb)):
             if s["pair_overflow"]:
@@ -2136,6 +2332,9 @@ def files_phase(device, launches: dict, bunny=(800, 600, 8),
     finally:
         rd.render_scene = plain
     n_builds = rd.scene_context_builds() - builds
+    r = staged_renderer()
+    if r is not None and r.graphs:
+        check_graph_nodes("flythrough", r)
     later = frames_run[1:]
     rays = sum(float(st["counts_device"][0] + st["counts_device"][1])
                for _, st in later)
@@ -2450,6 +2649,217 @@ def bench_phase(rays: dict, smi: str) -> None:
             f"{detail['warmup_other_s']:.3f}); {smi}")
 
 
+# --- 9. the stage programs as CUDA graphs --------------------------------
+
+# each path of the graphs phase: (preset, spp, config overrides, scene
+# or None for the preset's own): the preset's size, its measured caps
+GRAPH_PATHS = {
+    "bunny": ("bunny", 8, {}, None),
+    "sponza": ("sponza", 2, {}, None),
+    "cornell": ("cornell", 16, {}, None),
+    "hello_triangle": ("hello_triangle", 1, {}, None),
+    "bunny_sorted": ("bunny", 8, dict(sorted_wave=True), None),
+    "bunny_packet": ("bunny", 8, dict(intersector="bvh_packet"), None),
+    # "custom" keeps the bunny's measured caps off the fence's waves
+    "fence": ("bunny", 8, dict(scene="custom"), "fence"),
+}
+# the loops each path runs: (label, switches, graphs keyword)
+GRAPH_MODES = (
+    ("eager", dict(TPURT_FUSE_STAGES="0"), False),  # the default loop
+    ("unfused", dict(TPURT_FUSE_STAGES="0"), True),
+    ("stages_eager", dict(TPURT_FUSE_STAGES="1"), False),
+    ("stages", dict(TPURT_FUSE_STAGES="1"), True),
+    ("whole_eager", dict(TPURT_FUSE_BOUNCES="1"), False),
+    ("whole", dict(TPURT_FUSE_BOUNCES="1"), True),
+)
+GRAPH_TIMED = ("eager", "unfused", "stages", "whole")  # timed in turns
+GRAPHED = ("unfused", "stages", "whole")  # the modes that capture
+
+
+def graph_renderers(name: str, device):
+    """The path's scene and camera, and one StagedRenderer per loop of
+    GRAPH_MODES that applies to it (the whole batch is not for flat
+    shading or the sorted loop: there its switch leaves the loop as it
+    is, and the path keeps the other modes)."""
+    from tpurt_torch.render import build_accel
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.render.staged import StagedRenderer
+    from tpurt_torch.scene.device import to_device
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils import autotune
+    from tpurt_torch.utils.config import get_config
+
+    preset, spp, over, scene = GRAPH_PATHS[name]
+    config = get_config(preset, spp=spp, **over)
+    config = get_config(preset, spp=spp,
+                        live_caps=autotune.live_caps_for(config),
+                        shadow_caps=autotune.want_caps_for(config), **over)
+    scene = (fence_scenes()[0] if scene == "fence"
+             else load_scene(config.scene))
+    meta = scene_meta(scene)
+    ds = to_device(scene, device=device)
+    accel = build_accel(config, ds, meta, scene=scene, device=device)
+    out = {}
+    for label, env, graphs in GRAPH_MODES:
+        with environ(env):
+            r = StagedRenderer(ds, accel, meta=meta, config=config,
+                               device=device, graphs=graphs)
+        if label.startswith("whole") and r.mode != "whole":
+            continue
+        out[label] = r
+    return scene, config, out
+
+
+def idle_share(fn) -> tuple:
+    """(device idle share of ``fn()``'s wall time, busy ms, kernels the
+    profiler saw): ``torch.profiler`` over one call that ends in a
+    synchronize, as ``utils/profiling.py`` reads a batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            n += e.count
+    return max(0.0, 1.0 - busy / (wall * 1e3)), busy, n
+
+
+def graphs_phase(device, smi: str) -> None:
+    """Phase 9 of the module docstring on ``device`` (a CPU dry run has
+    no graphs: every loop runs eagerly there)."""
+    import torch
+
+    from tpurt_torch import kernels as kn
+    from tpurt_torch.core.camera import Camera
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for name in GRAPH_PATHS:
+        t_path = time.perf_counter()
+        scene, config, rs = graph_renderers(name, device)
+        spp = config.spp_per_batch
+        cam = scene.camera
+        # a second camera: 2% of the way to the look-at point
+        moved = Camera(cam.position + 0.02 * (cam.look_at - cam.position),
+                       cam.look_at, cam.up, cam.vfov_deg)
+        inputs = ((cam, config.seed, 0), (cam, config.seed, spp),
+                  (moved, config.seed, 0))
+        info = {k: (r.mode, r.graphs, r.graph_reason) for k, r in rs.items()}
+        log(f"[graphs] {name} {config.width}x{config.height} x {spp} spp: "
+            f"loops {info}")
+        # the unfused and the stage graphs captured by prewarm; the whole
+        # batch's by its first batch (the warm-up chain's result is that
+        # batch's)
+        cap = {}
+        for label in ("unfused", "stages"):
+            sync()
+            t0 = time.perf_counter()
+            kn.reset_launch_counts()
+            n = rs[label].prewarm(cam, config.seed, 0)
+            sync()
+            cap[label] = (n, time.perf_counter() - t0, kn.launch_counts())
+        results = {}
+        for label, r in rs.items():
+            runs = []
+            for c, seed, s0 in inputs:
+                kn.reset_launch_counts()
+                sync()
+                t0 = time.perf_counter()
+                img, rays = r(c, seed, s0)
+                sync()
+                runs.append((img, rays, kn.launch_counts(),
+                             time.perf_counter() - t0))
+            results[label] = runs
+        if "whole" in rs:
+            cap["whole"] = (len(rs["whole"]._graphs or ()),
+                            results["whole"][0][3], results["whole"][0][2])
+        for label, (n, sec, counts) in cap.items():
+            log(f"[graphs] {name} {label}: {n} graphs; prewarm / first "
+                f"batch {sec:.3f} s (warm-up batch and captures), its "
+                f"launches {counts}")
+            if on_card and rs[label].graphs and n != len(
+                    rs[label].programs()):
+                raise AssertionError(f"{name} {label}: {n} graphs captured")
+        # bit-equal: each graph mode to its split run eagerly, the stage
+        # split to the default loop, batch by batch, launches too
+        pairs = [("unfused", "eager"), ("stages", "stages_eager"),
+                 ("stages_eager", "eager"), ("whole", "whole_eager")]
+        for got, want in pairs:
+            if got not in results:
+                continue
+            for k, ((ig, rg, lg, _), (iw, rw, lw, _)) in enumerate(
+                    zip(results[got], results[want])):
+                same = torch.equal(ig, iw) and torch.equal(rg, rw)
+                launches_same = lg == lw
+                log(f"[graphs] {name} {got} against {want}, batch {k} "
+                    f"{inputs[k][1:]}{' moved camera' if k == 2 else ''}: "
+                    f"image and counters bit-equal {same}; launches {lg}"
+                    f"{'' if launches_same else f' against {lw}'}")
+                if not (same and launches_same):
+                    raise AssertionError(f"{name}: {got} differs from "
+                                         f"{want} at batch {k}")
+        # each graph mode's counts a replay held to its kernel nodes
+        for label in GRAPHED:
+            if label in rs and rs[label].graphs:
+                check_graph_nodes(f"{name} {label}", rs[label])
+        if "whole" in results:
+            for k, ((iw, rw, _, _), (ie, re, _, _)) in enumerate(
+                    zip(results["whole"], results["eager"])):
+                d = (iw - ie).abs() / spp
+                rmse = float(torch.sqrt((d * d).mean()))
+                off = float((d > 1e-3).float().mean())
+                diff = {i: (float(rw[i]), float(re[i]))
+                        for i in range(rw.shape[0]) if rw[i] != re[i]}
+                log(f"[graphs] {name} whole batch (uncapped waves) against "
+                    f"the default loop, batch {k}: RMSE {rmse:.3e}, "
+                    f"{off:.4%} of pixels off by more than 1e-3; counters "
+                    f"that differ (slot: whole, default) {diff}")
+                if not (rmse <= GOLDEN_RMSE and off < ALTERNATE_OFF):
+                    raise AssertionError(f"{name}: the whole batch differs "
+                                         "from the default loop")
+        # Mrays/s in turns, one batch a turn, after an untimed round (a
+        # capture empties the allocator's cache: an eager batch after
+        # one allocates anew)
+        timed = [k for k in GRAPH_TIMED if k in rs]
+        times = {k: [] for k in timed}
+        for label in timed:
+            rs[label](cam, config.seed, 0)
+        for label in timed + timed[::-1]:
+            sync()
+            t0 = time.perf_counter()
+            _, rays = rs[label](cam, config.seed, 0)
+            sync()
+            times[label].append((float(rays[0] + rays[1]),
+                                 time.perf_counter() - t0))
+        log(f"[graphs] {name} Mrays/s in turns ({smi}): " + ", ".join(
+            f"{k} " + " / ".join(f"{n / t / 1e6:.4f}" for n, t in v)
+            for k, v in times.items()))
+        if name == "bunny" and on_card:
+            share = {k: idle_share(lambda r=rs[k]: r(cam, config.seed, 0))
+                     for k in ("eager", "stages")}
+            log(f"[graphs] bunny device idle share of one batch "
+                f"(torch.profiler, {smi}): " + ", ".join(
+                    f"{k} {v[0]:.4f} (busy {v[1]:.3f} ms, {v[2]} kernels)"
+                    for k, v in share.items()))
+        del rs, results
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"[graphs] {name}: {time.perf_counter() - t_path:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2462,6 +2872,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
+    keep_graphs()  # check_graph_nodes reads every graph the run captures
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
@@ -2517,7 +2928,10 @@ def main() -> int:
     # 8. the port's bench
     bench_phase(rays, smi)
 
-    # 9. report
+    # 9. the stage programs as CUDA graphs
+    graphs_phase(device, smi)
+
+    # 10. report
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

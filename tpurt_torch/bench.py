@@ -25,7 +25,8 @@ CUDA device it raises, and there is no fallback to the CPU. It makes:
     split into ``warmup_build_s`` (the CUDA kernel library's nvcc
     seconds, 0.0 when a build was reused or on the CPU),
     ``warmup_scene_s`` (the scene context: host scene, accel build and
-    upload) and ``warmup_other_s`` (the rest, mostly the first batch);
+    upload) and ``warmup_other_s`` (the rest: the stage graphs'
+    warm-up and capture, and the first batch);
   * ``RUNS`` fresh accumulations of the full config, each timed by
     ``render_scene``'s own ``elapsed_s`` (wall time between two device
     synchronizes). ``value`` is the median run's Mrays/s; ``detail``

@@ -304,7 +304,9 @@ def _write_back(out: _Walk, s: _Walk, rows) -> _Walk:
 
 def make_two_level_intersector(ds, accel: SceneAccel, leaf_size: int = 4):
     """Closest/any-hit pair over the two-level accel (the brute force's
-    interface). ``Hit.slot`` is -1: this accel has no shade records."""
+    interface). ``Hit.slot`` is -1: this accel has no shade records.
+    ``host_read(n)`` on both names the walk's host read (it counts its
+    running rays to compact them)."""
 
     def closest(org, dirn, t_min, t_max) -> Hit:
         s = _traverse(ds, accel, org, dirn, t_min, t_max, leaf_size, False)
@@ -320,4 +322,6 @@ def make_two_level_intersector(ds, accel: SceneAccel, leaf_size: int = 4):
         return _traverse(ds, accel, org, dirn, t_min, t_max, leaf_size,
                          True).found
 
+    closest.host_read = any_hit.host_read = lambda n: (
+        "the LBVH walk reads its running-ray count to compact them")
     return closest, any_hit

@@ -251,7 +251,8 @@ def packet_cuda(tables, org, dirn, tmax, any_hit: bool):
         out[3].data_ptr(), stats.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"packet kernel launch failed: cudaError {err}")
-    packet_cuda.launches += 1
+    if n:  # no rays: the launcher launches nothing
+        packet_cuda.launches += 1
     return (*out, stats.to(f32))
 
 

@@ -198,7 +198,8 @@ def pair_test_cuda(pair_ray, pair_cluster, block_cmin, org, dirn, tmax,
         out[2].data_ptr(), out[3].data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"pair kernel launch failed: cudaError {err}")
-    pair_test_cuda.launches += 1
+    if p:  # no pair slots: the launcher launches nothing
+        pair_test_cuda.launches += 1
     return tuple(out)
 
 
@@ -272,7 +273,9 @@ def make_pair_intersector(ds, accel, *, pairs_per_ray: int = 8):
     ``pairs_per_ray`` sizes the static pair capacity (N × pairs_per_ray
     slots per trace, block-aligned); an overflow drops the trailing
     clusters' pairs of the affected ray chunk and is reported in
-    ``closest.with_stats`` stats[1]. ``any_hit`` has no ``with_stats``."""
+    ``closest.with_stats`` stats[1]. ``any_hit`` has no ``with_stats``.
+    ``host_read(n)`` on both names the expand's host read (its pair
+    lists come from ``torch.nonzero``)."""
     del ds
     lo = accel.cluster_lo
     hi = accel.cluster_hi
@@ -314,4 +317,6 @@ def make_pair_intersector(ds, accel, *, pairs_per_ray: int = 8):
         return _run(org, dirn, t_max)[3] >= 0.0
 
     closest.with_stats = closest_with_stats
+    closest.host_read = any_hit.host_read = lambda n: (
+        "bvh_pair's expand lists its pairs with torch.nonzero")
     return closest, any_hit

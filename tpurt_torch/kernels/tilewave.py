@@ -313,7 +313,8 @@ def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
         _stream(dev))
     if err:
         raise RuntimeError(f"entries kernel launch failed: cudaError {err}")
-    entries_cuda.launches += 1
+    if n_tiles:  # no tiles: the launcher launches nothing
+        entries_cuda.launches += 1
     return out
 
 
@@ -345,7 +346,8 @@ def exact_mask_cuda(org, inv_d, tmax, lo, hi):
         _stream(dev))
     if err:
         raise RuntimeError(f"exact_mask kernel launch failed: cudaError {err}")
-    exact_mask_cuda.launches += 1
+    if n_tiles:  # no tiles: the launcher launches nothing
+        exact_mask_cuda.launches += 1
     return mask, tn
 
 
@@ -917,10 +919,11 @@ def _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts, off,
         out[4].data_ptr() if two_level else None, _stream(dev))
     if err:
         raise RuntimeError(f"tileloop kernel launch failed: cudaError {err}")
-    tileloop_cuda.launches += 1
-    name = _variant(pair_meta, sc_meta, scale, seg)
-    tileloop_cuda.variant_launches[name] = \
-        tileloop_cuda.variant_launches.get(name, 0) + 1
+    if n_tiles:  # no tiles: the launcher launches nothing
+        tileloop_cuda.launches += 1
+        name = _variant(pair_meta, sc_meta, scale, seg)
+        tileloop_cuda.variant_launches[name] = \
+            tileloop_cuda.variant_launches.get(name, 0) + 1
     return tuple(out)
 
 
@@ -1087,10 +1090,11 @@ def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
         _stream(dev))
     if err:
         raise RuntimeError(f"tilegrid kernel launch failed: cudaError {err}")
-    name = ("tilegrid" + ("_tl" if two_level else "")
-            + ("_allpairs" if all_pairs else ""))
-    tilegrid_cuda.variant_launches[name] = \
-        tilegrid_cuda.variant_launches.get(name, 0) + 1
+    if n_tiles:  # no tiles: the launcher launches nothing
+        name = ("tilegrid" + ("_tl" if two_level else "")
+                + ("_allpairs" if all_pairs else ""))
+        tilegrid_cuda.variant_launches[name] = \
+            tilegrid_cuda.variant_launches.get(name, 0) + 1
     return tuple(out)
 
 
@@ -1204,7 +1208,7 @@ def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
                         device=dev)
     out = tileloop(org, dirn, _safe_inv(dirn), tmv, tri_rows, entry, counts,
                    0.0, any_hit, **tl)
-    return out, torch.tensor(float(n_tiles * n_clusters), device=dev)
+    return out, torch.full((), float(n_tiles * n_clusters), device=dev)
 
 
 def _segment_lists(org, dirn, inv_d, tmv, lo, hi, scale, *, exact,
@@ -1289,7 +1293,7 @@ def _grid_list(org, dirn, tmv, lo, hi, *, n_clusters, pair_cap,
             n_clusters)
         cl = torch.arange(n_clusters, device=dev).repeat(n_tiles)
         packed = (tiles * 65536 + cl + 1).to(torch.int32)
-        n_pairs = torch.tensor(float(n_tiles * n_clusters), device=dev)
+        n_pairs = torch.full((), float(n_tiles * n_clusters), device=dev)
         return packed, n_pairs, torch.zeros((), dtype=torch.bool, device=dev)
     mask = _tile_mask(org, dirn, tmv, lo, hi, n_tiles)
     n_pairs = (mask.sum(dtype=torch.int64) + n_tiles).to(torch.float32)
@@ -1414,7 +1418,10 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     ``live_cap``/``shadow_live_cap``: live-wave truncation of the sorted
     closest/shadow waves (rays, rounded up to whole chunks where the
     wave is chunked); alive rays past the cap are counted in stats[2]
-    so the caller can re-render uncapped."""
+    so the caller can re-render uncapped. ``host_read(n)`` (on both
+    closures) says why a wave of ``n`` rays reads the host mid-trace —
+    the pair segments and the grid over pairs size their lists by what
+    the device found — or "" (all-pairs and entry rows)."""
     del ds
     for s in (ray_sort, shadow_ray_sort):
         if s not in ("none", "morton", "octant", "pre"):
@@ -1447,6 +1454,53 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     diag = torch.sqrt(ext[0] * ext[0] + ext[1] * ext[1] + ext[2] * ext[2])
     clamp = (n_clusters + 1 if pairs_per_tile <= 0
              else min(pairs_per_tile, n_clusters + 1))
+
+    def _plan(n_tiles, eff_avg):
+        """The mode and the launch sizing of a wave of ``n_tiles`` tiles
+        past the all-pairs check (the reference's): (supercluster
+        entries, one launch, entry rows, chunk tiles, pair-segment
+        capacity, grid pairs a tile)."""
+        avg = clamp if eff_avg <= 0 else min(eff_avg, clamp)
+        sc_active = (sc_meta is not None and sc_env != "0" and use_loop
+                     and pairs_per_tile <= 0
+                     and _entry_rows_enabled(n_sc, n_tiles))
+        cluster_rows = _entry_rows_enabled(n_clusters, n_tiles)
+        sc_active = sc_active and (sc_env == "1" or not cluster_rows
+                                   or n_clusters >= SC_AUTO_MIN_CLUSTERS)
+        one_launch = use_loop and (sc_active or cluster_rows)
+        pcap = 0
+        if one_launch:
+            chunk_tiles = n_tiles
+        elif use_loop:
+            cap_avg = pairs_avg_cap if pairs_avg_cap > 0 else max(
+                pairs_avg, shadow_pairs_avg, eff_avg)
+            chunk_tiles = min(TILES_PER_LAUNCH, n_tiles)
+            pcap = min(chunk_tiles * (n_clusters if cap_avg <= 0
+                                      else min(cap_avg, n_clusters)),
+                       MAX_PAIRS_PER_LAUNCH)
+        else:
+            chunk_tiles = min(n_tiles, max(1, MAX_PAIRS_PER_LAUNCH // avg),
+                              32767)
+        # a wave past the gate whose chunks pass it runs entry rows too:
+        # the reference launches them per chunk, one launch gives the
+        # same rows, clamp and counts (all per tile)
+        rows = one_launch or (
+            use_loop and _entry_rows_enabled(n_clusters, chunk_tiles))
+        return sc_active, one_launch, rows, chunk_tiles, pcap, avg
+
+    def host_read(n: int) -> str:
+        """Why a wave of ``n`` rays reads the host before its trace ends
+        (its lists are sized by what the device found), or "" where it
+        does not: the staged loop captures only waves that do not."""
+        if all_pairs:
+            return ""  # a fixed row, or a fixed grid list
+        if not use_loop:
+            return ("the grid over pairs (TPURT_PAIR_LOOP=0) builds its "
+                    "pair lists with torch.nonzero")
+        if _plan(-(-n // TILE), pairs_avg)[2]:  # entry rows
+            return ""
+        return ("the pair segments (a wave past the entry-row gate) "
+                "build their lists by boolean indexing")
 
     def _run(org, dirn, t_max, any_hit=False, sort=None, avg_over=None,
              live_trunc=0):
@@ -1481,32 +1535,8 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
             return tuple(f[:n] for f in out), stats
         # the mode and the launch sizing of this wave (the reference's)
         eff_avg = pairs_avg if avg_over is None else avg_over
-        avg = clamp if eff_avg <= 0 else min(eff_avg, clamp)
-        sc_active = (sc_meta is not None and sc_env != "0" and use_loop
-                     and pairs_per_tile <= 0
-                     and _entry_rows_enabled(n_sc, n_tiles))
-        cluster_rows = _entry_rows_enabled(n_clusters, n_tiles)
-        sc_active = sc_active and (sc_env == "1" or not cluster_rows
-                                   or n_clusters >= SC_AUTO_MIN_CLUSTERS)
-        one_launch = use_loop and (sc_active or cluster_rows)
-        pcap = 0
-        if one_launch:
-            chunk_tiles = n_tiles
-        elif use_loop:
-            cap_avg = pairs_avg_cap if pairs_avg_cap > 0 else max(
-                pairs_avg, shadow_pairs_avg, eff_avg)
-            chunk_tiles = min(TILES_PER_LAUNCH, n_tiles)
-            pcap = min(chunk_tiles * (n_clusters if cap_avg <= 0
-                                      else min(cap_avg, n_clusters)),
-                       MAX_PAIRS_PER_LAUNCH)
-        else:
-            chunk_tiles = min(n_tiles, max(1, MAX_PAIRS_PER_LAUNCH // avg),
-                              32767)
-        # a wave past the gate whose chunks pass it runs entry rows too:
-        # the reference launches them per chunk, one launch gives the
-        # same rows, clamp and counts (all per tile)
-        rows = one_launch or (
-            use_loop and _entry_rows_enabled(n_clusters, chunk_tiles))
+        sc_active, one_launch, rows, chunk_tiles, pcap, avg = _plan(
+            n_tiles, eff_avg)
         extra = 0 if rows else (-n_tiles) % chunk_tiles  # equal chunks
         if extra:
             e = extra * TILE
@@ -1614,4 +1644,5 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
 
     closest.with_stats = closest_with_stats
     any_hit.with_stats = any_hit_with_stats
+    closest.host_read = any_hit.host_read = host_read
     return closest, any_hit

@@ -31,6 +31,13 @@ its accel and the last renderer across calls, so the frames of a
 flythrough (one scene, a new camera each) upload and build once; the
 budget retries reuse the entry too (the budgets do not change the accel;
 a retry builds a renderer with the doubled budgets).
+
+A staged renderer runs its stage programs as CUDA graphs on the card
+(``tpurt_torch.render.staged``): under ``TPURT_PREWARM`` (default "1")
+``render_scene`` captures them with ``renderer.prewarm`` when it builds
+the renderer, before the timed batches, as the reference prewarms its
+stage executables; a flythrough's frames replay them with each frame's
+camera.
 """
 
 from __future__ import annotations
@@ -58,7 +65,8 @@ from tpurt_torch.utils.config import RenderConfig, get_config
 RENDERER_SWITCHES = ("TPURT_PAIR_LOOP", "TPURT_ENTRY_ROWS",
                      "TPURT_SORTED_WAVE", "TPURT_SUPERCLUSTER",
                      "TPURT_EXACT_MASK", "TPURT_FUSED_ENTRIES",
-                     "TPURT_CAPTURE_WAVES", "TPURT_DEBUG_STAGES")
+                     "TPURT_CAPTURE_WAVES", "TPURT_DEBUG_STAGES",
+                     "TPURT_FUSE_STAGES", "TPURT_FUSE_BOUNCES")
 
 # the one-entry scene-context cache (host scene, device arrays, accel),
 # and how many contexts it has built
@@ -332,6 +340,22 @@ def _make_renderer(config, ctx, device, mesh=None):
     return renderer
 
 
+def _prewarm(renderer, cam, state, verbose: bool) -> None:
+    """A new staged renderer's stage graphs, captured before its first
+    batch under ``TPURT_PREWARM`` (default "1"), as the reference
+    prewarms its stage executables; under ``verbose`` how many, or why
+    its path runs eagerly."""
+    prewarm = getattr(renderer, "prewarm", None)
+    if prewarm is None:  # the megakernel and wavefront loops
+        return
+    if verbose and renderer.graph_reason:
+        print(f"  stage programs run eagerly: {renderer.graph_reason}")
+    if os.environ.get("TPURT_PREWARM", "1") == "1":
+        n_ready = prewarm(cam, state.seed, state.n_samples)
+        if verbose and n_ready:
+            print(f"  prewarmed {n_ready} stage graphs")
+
+
 def _render_scene_once(config, ctx, camera, state, verbose, device,
                        readback_stats=True, mesh=None):
     cam = camera if camera is not None else ctx["scene"].camera
@@ -348,13 +372,17 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
     # them when built); the config holds the pipeline
     key = (dataclasses.replace(config, spp=0, seed=0, exposure=1.0),
            *(os.environ.get(k) for k in RENDERER_SWITCHES), _mesh_key(mesh))
-    if ctx.get("renderer_key") != key:
-        ctx["renderer"] = _make_renderer(config, ctx, device, mesh)
-        ctx["renderer_key"] = key
-    renderer = ctx["renderer"]
     if state is None:
         state = fb.new_frame_state(config.width, config.height,
                                    config.seed, device=device)
+    if ctx.get("renderer_key") != key:
+        # the old renderer (and its graphs) go before new ones are made
+        ctx.pop("renderer", None)
+        ctx.pop("renderer_key", None)
+        renderer = _make_renderer(config, ctx, device, mesh)
+        _prewarm(renderer, cam, state, verbose)
+        ctx["renderer"], ctx["renderer_key"] = renderer, key
+    renderer = ctx["renderer"]
 
     def sync():
         if device.type == "cuda":

@@ -76,6 +76,8 @@ def transform_ray(inv: torch.Tensor, org: torch.Tensor, dirn: torch.Tensor):
 
 
 def _per_ray(x, n, device):
+    if isinstance(x, (int, float)):  # a fill: nothing copied to the device
+        return torch.full((n,), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32,
                            device=device).expand(n).contiguous()
 

@@ -1,5 +1,4 @@
-"""Staged wave loop — port of the single-device path of
-``tpurt.render.staged``, as one eager Python loop.
+"""Staged wave loop — port of ``tpurt.render.staged``.
 
 Per sample batch: raygen → for each bounce: closest trace, shade with NEE
 setup, occlusion trace → resolve (tile order → raster). Flat shading
@@ -31,18 +30,53 @@ chunks back in shard order, drops the pads and scatters to raster: every
 rank ends with the whole frame and the world's counters. The sorted-wave
 variant stays single-device, as in the reference.
 
+The reference's stage programs, with its switches and defaults:
+
+  * ``TPURT_FUSE_STAGES`` (default "1"): ``raygen_trace0``, then a bounce
+    trace (``trace``, cut at the bounce's live cap) and ``shade_occlude``
+    (shade, then the occlusion trace cut at its shadow cap) a bounce, and
+    the per-pixel sums (``resolve``). "0" runs the unfused loop: raygen,
+    trace, shade, occlude a bounce.
+  * ``TPURT_FUSE_BOUNCES`` (default "0"; a single process, not the sorted
+    loop): the whole batch as one program (``whole_batch``), its waves
+    uncapped.
+  * The sorted loop's ``raygen_trace0``, ``trace_presorted``,
+    ``shade_occlude_sorted[_last]`` and ``resolve_sorted``.
+
+On the card each stage program is a CUDA graph (``torch.cuda.CUDAGraph``):
+captured once, after one eager warm-up run on a side stream, and
+replayed with one launch. ``TPURT_FUSE_STAGES`` only chooses how the
+batch is split: the unfused loop's stages (raygen, trace[b], shade[b],
+occlude[b], resolve) are graphs too. The renderer's graphs share one
+memory pool and are replayed in the order they were captured. What
+changes between batches — the camera, the seed and the first sample —
+lives in static device buffers that a batch fills before the replays;
+the graphs' outputs are static too, so a batch returns copies. The
+first batch (or ``prewarm``) runs the warm-up chain, whose results it
+returns, and captures each stage beside it; later batches replay. The
+stage programs run eagerly where the reference's prewarm makes none
+ready (a mesh: each rank's stages; flat shading), under the
+``TPURT_CAPTURE_WAVES`` probe (it copies waves to the host), and where
+a wave's lists are sized on the host (the pair segments, the grid over
+pairs, ``bvh_pair``'s expand, the LBVH walk's compaction: the
+intersector's ``host_read``): the renderer records ``graphs = False``
+and its ``graph_reason`` when it is built. Everything runs eagerly on
+the CPU. A kernel wrapper counts its launches in Python, which a replay
+does not run: each graph records what its capture counted and adds it
+again on every replay (``tpurt_torch.kernels.add_launches``);
+``chip_smoke.py`` holds each graph's count to the kernel nodes that
+libcuda holds for it.
+
 Two of the reference's probes are carried. ``TPURT_CAPTURE_WAVES=<dir>``
 writes the default loop's real waves as ``.npz`` before they are traced:
 ``bounce{b}_wave.npz`` (``org``, ``dirn``, ``alive``) for b ≥ 1 and
 ``shadow{b}_wave.npz`` (``org``, ``dirn``, ``tmax``, ``want``), the
-reference's names and keys; it forces the default (unsorted) loop, as
-there, and takes a single-process render (a rank holds only its shard).
-``TPURT_DEBUG_STAGES=1`` waits for the device after each stage and
-prints its wall time as ``    [stage] <name>: X.XXs``. Neither changes
-the image.
-
-The reference's per-stage executables, AOT cache and stage fusion
-variants exist to work around a TPU backend and are not carried.
+reference's names and keys; it forces the default (unsorted, unfused)
+loop, as there, and takes a single-process render (a rank holds only its
+shard). ``TPURT_DEBUG_STAGES=1`` waits for the device after each stage
+and prints its wall time as ``    [stage] <name>: X.XXs`` (under fusion
+the reference's fused names, ``trace[b]`` and ``shade_occlude[b]``).
+Neither changes the image.
 """
 
 from __future__ import annotations
@@ -55,7 +89,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt_torch import materials
+from tpurt_torch import kernels, materials
 from tpurt_torch.core.camera import Camera, camera_rays, \
     full_frame_pixels_tiled
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
@@ -71,6 +105,9 @@ from tpurt_torch.render.integrator import (
 from tpurt_torch.render.intersectors import SceneMeta
 from tpurt_torch.scene.device import torch_device
 from tpurt_torch.utils.config import RenderConfig
+
+# stages TPURT_DEBUG_STAGES does not print (the reference prints none)
+_SILENT = ("resolve", "whole_batch")
 
 
 class WaveState(NamedTuple):
@@ -103,6 +140,13 @@ def _caps(caps, count: int, n: int):
     return out
 
 
+def _host_read(fn, n: int) -> str:
+    """Why the intersector ``fn`` reads the host on a wave of ``n`` rays
+    ("" where it does not, or has no ``host_read``)."""
+    probe = getattr(fn, "host_read", None)
+    return probe(n) if probe is not None else ""
+
+
 class StagedRenderer:
     """One sample batch of ``config.spp_per_batch`` samples per pixel on
     ``device``: ``renderer(cam, seed, sample0) -> ((H, W, 3) radiance sum,
@@ -110,10 +154,16 @@ class StagedRenderer:
     any wave (``chip_smoke.py`` takes the first bounce wave's kernel
     inputs from them). With a ``mesh`` the renderer traces its rank's
     shard and the call returns the world's frame and counters;
-    ``shard`` gives the shard's own sums, which ``frame`` merges."""
+    ``shard`` gives the shard's own sums, which ``frame`` merges.
+
+    ``mode`` is the loop the switches chose ("fused", "whole", "sorted",
+    "unfused" or "flat"); ``graphs`` whether its stage programs run as
+    CUDA graphs (the card, no ``graph_reason`` and the ``graphs``
+    keyword not False); ``graph_reason`` why the path's stage programs
+    run eagerly on the card ("" where nothing keeps them eager)."""
 
     def __init__(self, ds, accel, *, meta: SceneMeta, config: RenderConfig,
-                 device, mesh=None):
+                 device, mesh=None, graphs: bool = True):
         self.ds = ds
         self.config = config
         self.mesh = mesh
@@ -142,50 +192,75 @@ class StagedRenderer:
         # within-batch sample index of every ray
         self.ds_r = torch.arange(spp, dtype=torch.int64).repeat_interleave(
             n_local).to(device)
+        # the batch's inputs, filled before each batch: the camera
+        # (position, look_at, up, vfov), the seed and the first sample
+        self.cam_buf = torch.zeros(10, dtype=torch.float32, device=device)
+        self.seed_buf = torch.zeros((), dtype=torch.int64, device=device)
+        self.sample0_buf = torch.zeros((), dtype=torch.int64, device=device)
 
-        # one intersector per wave kind and cap (caps come from measured
-        # tables; alive rays past a cap are counted as live overflow).
-        # Alpha-tested scenes wrap each in its cut-out loop; opaque scenes
-        # keep the intersector itself.
-        def closest(wave, live_cap=0):
-            fn = make_intersectors(ds, accel, meta=meta, config=config,
-                                   wave=wave, lean=True,
-                                   live_cap=live_cap)[0]
-            return make_cutout_closest(ds, accel, fn, meta=meta)
-
-        def occluder(shadow_cap, wave="bounce"):
-            fn, any_hit = make_intersectors(
-                ds, accel, meta=meta, config=config, wave=wave,
-                lean=True, shadow_live_cap=shadow_cap)
-            return make_occluder(ds, accel, fn, any_hit, meta=meta)
-
-        # the reference's probes (module docstring), read when built
+        # the reference's switches and probes (module docstring), read
+        # when built
         self.capture = os.environ.get("TPURT_CAPTURE_WAVES") or None
         self.debug = os.environ.get("TPURT_DEBUG_STAGES") == "1"
         self._mark = 0.0
         if self.capture and mesh is not None:
             raise ValueError("TPURT_CAPTURE_WAVES captures a single-process "
                              "render: a rank holds only its shard's waves")
+        fuse = os.environ.get("TPURT_FUSE_STAGES", "1") == "1"
+        whole = os.environ.get("TPURT_FUSE_BOUNCES", "0") == "1"
+        if self.capture:
+            fuse = whole = False
         self.sorted = (
             mesh is None and not self.capture and hasattr(accel, "cluster_lo")
             and config.shading_mode != "flat"
             and os.environ.get("TPURT_SORTED_WAVE",
                                "1" if config.sorted_wave else "0") == "1")
+        if config.shading_mode == "flat":
+            self.mode = "flat"
+        elif self.sorted:
+            self.mode = "sorted"
+        elif whole and mesh is None:
+            self.mode = "whole"
+        else:
+            self.mode = "fused" if fuse else "unfused"
+
+        # one intersector per wave kind and cap (caps come from measured
+        # tables; alive rays past a cap are counted as live overflow).
+        # Alpha-tested scenes wrap each in its cut-out loop; opaque scenes
+        # keep the intersector itself. ``reads`` collects the host reads
+        # of the waves they will trace.
+        reads = []
+
+        def closest(wave, n_wave, live_cap=0):
+            fn = make_intersectors(ds, accel, meta=meta, config=config,
+                                   wave=wave, lean=True,
+                                   live_cap=live_cap)[0]
+            reads.append(_host_read(fn, n_wave))
+            return make_cutout_closest(ds, accel, fn, meta=meta)
+
+        def occluder(n_wave, shadow_cap, wave="bounce"):
+            fn, any_hit = make_intersectors(
+                ds, accel, meta=meta, config=config, wave=wave,
+                lean=True, shadow_live_cap=shadow_cap)
+            reads.append(_host_read(any_hit, n_wave))
+            return make_occluder(ds, accel, fn, any_hit, meta=meta)
+
         if self.sorted:
             # the sorted waves: the intersectors neither sort nor cut
             # them; the loop cuts a sorted wave at its cap, rounded up to
             # whole tiles, where that is below the wave's size
-            self.closest = [closest("primary")] + [closest("presorted")] * mb
-            self.occluders = [occluder(0, "presorted")] * (mb + 1)
-            self.sorted_caps = []
-            n_cur = n
+            self.sorted_caps, sizes = [], [n]
             for b in range(mb):
                 cap = int(config.live_caps[b]) if b < len(
                     config.live_caps) else 0
                 cap = -(-cap // TILE) * TILE if cap > 0 else 0
-                cap = cap if cap < n_cur else 0
-                n_cur = cap or n_cur
+                cap = cap if cap < sizes[-1] else 0
+                sizes.append(cap or sizes[-1])
                 self.sorted_caps.append(cap)
+            self.closest = [closest("primary", n)] + [
+                closest("presorted", sizes[b]) for b in range(1, mb + 1)]
+            self.occluders = [occluder(sizes[b], 0, "presorted")
+                              for b in range(mb + 1)]
             self.lo_all = accel.cluster_lo.amin(dim=0)
             self.hi_all = accel.cluster_hi.amax(dim=0)
             # raster pixel id → its position in the tile order
@@ -193,19 +268,59 @@ class StagedRenderer:
                                           device=device)
             self.pos_of_pix[self.linear] = torch.arange(n_px, device=device)
         else:
-            live_caps = _caps(config.live_caps, mb, n)
-            self.closest = [closest("primary")] + [
-                closest("bounce", live_caps[b - 1])
+            # the whole batch traces full waves, as the reference's does
+            uncapped = self.mode == "whole"
+            live_caps = _caps(() if uncapped else config.live_caps, mb, n)
+            shadow_caps = _caps(() if uncapped else config.shadow_caps,
+                                mb + 1, n)
+            self.closest = [closest("primary", n)] + [
+                closest("bounce", n, live_caps[b - 1])
                 for b in range(1, mb + 1)]
-            self.occluders = [occluder(cap) for cap in
-                              _caps(config.shadow_caps, mb + 1, n)]
+            self.occluders = [occluder(n, cap) for cap in shadow_caps]
         self.resolver = materials.make_resolver(
             ds, accel, texture_filter=config.texture_filter)
+
+        # why the stage programs run eagerly on the card, decided here:
+        # the wave probe, where the reference's prewarm makes none ready,
+        # or a wave's host read
+        if self.capture:
+            self.graph_reason = ("TPURT_CAPTURE_WAVES copies the waves to "
+                                 "the host")
+        elif mesh is not None:
+            self.graph_reason = ("a mesh: the reference's prewarm makes no "
+                                 "stage ready there")
+        elif self.mode == "flat":
+            self.graph_reason = ("flat shading: the reference's prewarm "
+                                 "makes no stage ready")
+        else:
+            self.graph_reason = next((r for r in reads if r), "")
+        self.graphs = (bool(graphs) and device.type == "cuda"
+                       and not self.graph_reason)
+        self._graphs = None  # [(CUDAGraph, launches a replay adds)]
+        self._static_out = None  # the last graph's outputs
+
+    # --- the batch's inputs ------------------------------------------------
+
+    def set_inputs(self, cam: Camera, seed, sample0) -> None:
+        """Fill the input buffers with the batch's camera, seed and first
+        sample (the shard's: ``sample_offset`` added)."""
+        packed = torch.cat([torch.as_tensor(f).to("cpu", torch.float32)
+                            .reshape(-1) for f in cam])
+        self.cam_buf.copy_(packed)
+        self.seed_buf.fill_(int(seed))
+        self.sample0_buf.fill_(int(sample0) + self.sample_offset)
+
+    def camera(self) -> Camera:
+        """The camera of the input buffer (views of it)."""
+        b = self.cam_buf
+        return Camera(b[0:3], b[3:6], b[6:9], b[9])
+
+    # --- the stages ---------------------------------------------------------
 
     def _stage(self, name: str) -> None:
         """``TPURT_DEBUG_STAGES``: wait for the device, then print the
         stage's wall time since the previous mark."""
-        if not self.debug:
+        if not self.debug or name in _SILENT:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -372,67 +487,209 @@ class StagedRenderer:
         radiance[smp * self.n_px + self.pos_of_pix[pix]] = rad
         return self.pixel_sums(state._replace(radiance=radiance))
 
-    def _sorted_batch(self, cam: Camera, seed: int, sample0: int):
-        mb = self.config.max_bounces
-        state = self.raygen(cam, seed, sample0)
-        self._stage("raygen")
-        tails = []
-        for bounce in range(mb + 1):
-            hit, state = self.trace(state, bounce)
-            self._stage(f"trace[{bounce}]")
-            # the stream of each ray's own (sample, pixel)
-            sampler = PixelSampler.make(seed, sample0 + state.sample,
-                                        state.pix)
-            state, shadow = self.shade(state, hit, sampler, bounce)
-            self._stage(f"shade[{bounce}]")
-            if shadow is not None:
-                state = self.occlude(state, shadow, bounce)
-                self._stage(f"occlude[{bounce}]")
-            if bounce == mb:
-                break
-            state = self.sort_wave(state)
-            cap = self.sorted_caps[bounce]
-            if cap:
-                tails.append((state.radiance[cap:], state.pix[cap:],
-                              state.sample[cap:]))
-                rays = state.rays.clone()
-                rays[3] += state.alive[cap:].sum()
-                state = WaveState(*(f[:cap] for f in state[:-1]), rays=rays)
-        return self.resolve_sorted(state, tails)
+    # --- the stage programs (each reads the input buffers) ----------------
 
-    def shard(self, cam: Camera, seed: int, sample0: int):
+    def raygen_trace0(self):
+        """raygen and the primary trace: (hit, wave)."""
+        state = self.raygen(self.camera(), self.seed_buf, self.sample0_buf)
+        return self.trace(state, 0)
+
+    def shade_occlude(self, state: WaveState, hit, sampler,
+                      bounce: int) -> WaveState:
+        """Shade, then the occlusion trace of its shadow rays."""
+        state, shadow = self.shade(state, hit, sampler, bounce)
+        if shadow is not None:
+            state = self.occlude(state, shadow, bounce)
+        return state
+
+    def shade_occlude_sorted(self, state: WaveState, hit, bounce: int):
+        """The sorted loop's shade and occlusion, each ray drawing from
+        its own (sample, pixel) stream; then, but after the last bounce,
+        the next wave sorted and cut at its cap: (wave, the cut tail's
+        (radiance, pix, sample) or None)."""
+        sampler = PixelSampler.make(self.seed_buf,
+                                    self.sample0_buf + state.sample,
+                                    state.pix)
+        state = self.shade_occlude(state, hit, sampler, bounce)
+        if bounce == self.config.max_bounces:
+            return state, None
+        state = self.sort_wave(state)
+        cap = self.sorted_caps[bounce]
+        if not cap:
+            return state, None
+        tail = (state.radiance[cap:], state.pix[cap:], state.sample[cap:])
+        rays = state.rays.clone()
+        rays[3] += state.alive[cap:].sum()
+        return WaveState(*(f[:cap] for f in state[:-1]), rays=rays), tail
+
+    def programs(self):
+        """The active loop's stage programs in order, as (name, fn): each
+        fn takes the carry of the one before (a dict; None for the
+        first) and returns its own; the last returns (per-pixel sums,
+        counters). The unfused loop splits a bounce into trace, shade
+        and occlude (and writes the ``TPURT_CAPTURE_WAVES`` probe's
+        files); flat shading traces the primary wave and resolves its
+        albedo; the whole batch is the fused chain as one program (over
+        uncapped intersectors)."""
+        mb = self.config.max_bounces
+
+        def raygen(c):
+            state = self.raygen(self.camera(), self.seed_buf,
+                                self.sample0_buf)
+            return dict(state=state, sampler=self.sampler(
+                self.seed_buf, self.sample0_buf))
+
+        def first(c):
+            hit, state = self.raygen_trace0()
+            sampler = (None if self.sorted  # each ray carries its stream
+                       else self.sampler(self.seed_buf, self.sample0_buf))
+            return dict(hit=hit, state=state, sampler=sampler, tails=())
+
+        def trace(c, b):
+            if self.capture and b > 0:
+                s = c["state"]
+                self._capture(f"bounce{b}_wave", org=s.org, dirn=s.dirn,
+                              alive=s.alive)
+            hit, state = self.trace(c["state"], b)
+            return dict(c, hit=hit, state=state)
+
+        def shade(c, b):
+            state, shadow = self.shade(c["state"], c["hit"], c["sampler"], b)
+            return dict(c, hit=None, state=state, shadow=shadow)
+
+        def occlude(c, b):
+            shadow = c["shadow"]
+            if self.capture:
+                self._capture(f"shadow{b}_wave", org=shadow[0],
+                              dirn=shadow[1], tmax=shadow[2], want=shadow[4])
+            return dict(c, shadow=None,
+                        state=self.occlude(c["state"], shadow, b))
+
+        def shade_occlude(c, b):
+            return dict(c, hit=None, state=self.shade_occlude(
+                c["state"], c["hit"], c["sampler"], b))
+
+        def shade_occlude_sorted(c, b):
+            state, tail = self.shade_occlude_sorted(c["state"], c["hit"], b)
+            tails = c["tails"] + ((tail,) if tail is not None else ())
+            return dict(c, hit=None, state=state, tails=tails)
+
+        def sums(c):
+            return self.pixel_sums(c["state"])
+
+        if self.mode == "flat":
+            return [("raygen", lambda c: dict(state=self.raygen(
+                        self.camera(), self.seed_buf, self.sample0_buf))),
+                    ("trace[0]", lambda c: trace(c, 0)),
+                    ("resolve", lambda c: self.pixel_sums(
+                        self.flat_shade(c["state"], c["hit"])))]
+        if self.mode == "unfused":
+            out = [("raygen", raygen)]
+            for b in range(mb + 1):
+                out += [(f"trace[{b}]", lambda c, b=b: trace(c, b)),
+                        (f"shade[{b}]", lambda c, b=b: shade(c, b))]
+                if self.config.use_nee:  # else shade makes no shadow rays
+                    out.append((f"occlude[{b}]",
+                                lambda c, b=b: occlude(c, b)))
+            return out + [("resolve", sums)]
+
+        so = shade_occlude_sorted if self.sorted else shade_occlude
+        out = [("trace[0]", first)]
+        for b in range(mb + 1):
+            if b:
+                out.append((f"trace[{b}]", lambda c, b=b: trace(c, b)))
+            out.append((f"shade_occlude[{b}]", lambda c, b=b: so(c, b)))
+        if self.sorted:
+            out.append(("resolve", lambda c: self.resolve_sorted(
+                c["state"], c["tails"])))
+        else:
+            out.append(("resolve", sums))
+        if self.mode != "whole":
+            return out
+
+        def whole_batch(c):
+            for _, fn in out:
+                c = fn(c)
+            return c
+
+        return [("whole_batch", whole_batch)]
+
+    # --- the CUDA graphs ----------------------------------------------------
+
+    def _capture_graphs(self, mark):
+        """Each stage program run eagerly on a side stream (the warm-up:
+        lazy module loads and the kernels' one-time attributes happen
+        outside any capture), then captured into a graph of the shared
+        pool on the warm-up chain's twin of static tensors. Returns the
+        warm-up chain's outputs: this batch's result."""
+        dev = self.device
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graphs, warm, static = [], None, None
+        with torch.cuda.stream(side):
+            for name, fn in self.programs():
+                warm = fn(warm)
+                mark(name)
+                graph = torch.cuda.CUDAGraph()
+                before = kernels.launch_snapshot()
+                with torch.cuda.graph(graph, pool=pool):
+                    static = fn(static)
+                # a capture launches nothing: its counts go to the replays
+                graphs.append((graph, kernels.take_launches_since(before)))
+        current = torch.cuda.current_stream(dev)
+        current.wait_stream(side)
+        for t in warm:  # made on the side stream, read on this one
+            t.record_stream(current)
+        self._graphs, self._static_out = graphs, static
+        return warm
+
+    def prewarm(self, cam: Camera, seed=0, sample0=0) -> int:
+        """Make every stage program of the active loop ready before the
+        first batch: load the kernel library, warm up and capture each
+        graph (``cam``, ``seed`` and ``sample0`` are the warm-up batch's
+        inputs; its result is dropped). Returns how many graphs it
+        captured: 0 where the reference's prewarm makes none ready (the
+        CPU, a mesh, flat shading) and on the paths that run eagerly."""
+        if (self.device.type != "cuda" or self.mesh is not None
+                or self.mode == "flat"):
+            return 0
+        from tpurt_torch.kernels import cuda_build
+
+        cuda_build.load()
+        if not self.graphs:
+            return 0
+        if self._graphs is None:
+            self.set_inputs(cam, seed, sample0)
+            self._capture_graphs(lambda name: None)
+        return len(self._graphs)
+
+    # --- a batch ------------------------------------------------------------
+
+    def shard(self, cam: Camera, seed: int, sample0: int, mark=None):
         """The batch's samples [sample0, sample0 + spp) on this shard:
         (its per-pixel sums in tile order, pads included; its counters).
-        A sample shard draws its own window of them."""
-        sample0 = sample0 + self.sample_offset
+        A sample shard draws its own window of them. ``mark(name)`` is
+        called after each stage (by default the ``TPURT_DEBUG_STAGES``
+        line)."""
+        mark = self._stage if mark is None else mark
+        self.set_inputs(cam, seed, sample0)
         self._mark = time.perf_counter()
-        if self.config.shading_mode == "flat":
-            state = self.raygen(cam, seed, sample0)
-            self._stage("raygen")
-            hit, state = self.trace(state, 0)
-            self._stage("trace[0]")
-            return self.pixel_sums(self.flat_shade(state, hit))
-        if self.sorted:
-            return self._sorted_batch(cam, seed, sample0)
-        sampler = self.sampler(seed, sample0)
-        state = self.raygen(cam, seed, sample0)
-        self._stage("raygen")
-        for bounce in range(self.config.max_bounces + 1):
-            if self.capture and bounce > 0:
-                self._capture(f"bounce{bounce}_wave", org=state.org,
-                              dirn=state.dirn, alive=state.alive)
-            hit, state = self.trace(state, bounce)
-            self._stage(f"trace[{bounce}]")
-            state, shadow = self.shade(state, hit, sampler, bounce)
-            self._stage(f"shade[{bounce}]")
-            if shadow is not None:
-                if self.capture:
-                    self._capture(f"shadow{bounce}_wave", org=shadow[0],
-                                  dirn=shadow[1], tmax=shadow[2],
-                                  want=shadow[4])
-                state = self.occlude(state, shadow, bounce)
-                self._stage(f"occlude[{bounce}]")
-        return self.pixel_sums(state)
+        programs = self.programs()
+        if not self.graphs:
+            carry = None
+            for name, fn in programs:
+                carry = fn(carry)
+                mark(name)
+            return carry
+        if self._graphs is None:
+            return self._capture_graphs(mark)
+        for (name, _), (graph, launches) in zip(programs, self._graphs):
+            graph.replay()
+            kernels.add_launches(launches)
+            mark(name)
+        # the next replay overwrites the static outputs
+        return tuple(t.clone() for t in self._static_out)
 
     def __call__(self, cam: Camera, seed: int, sample0: int):
         return self.frame(*self.shard(cam, seed, sample0))
@@ -442,6 +699,7 @@ def make_staged_renderer(ds, accel, *, meta: SceneMeta, config: RenderConfig,
                          mesh=None, device="cuda") -> StagedRenderer:
     """The reference's factory, with its keywords: the staged loop's batch
     ``render_batch(cam, seed, sample0) -> ((H, W, 3) sum, counters)`` on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU), with its
+    ``prewarm(cam, seed, sample0)``."""
     return StagedRenderer(ds, accel, meta=meta, config=config,
                           device=device, mesh=mesh)

@@ -21,8 +21,11 @@ The per-stage profiler:
 Renders one warm batch of the preset on CUDA three times, with the given
 intersector and pair budgets (no budget retries; the overflow flag is
 reported): once by the host clock, once with CUDA events around every
-stage of the staged loop (raygen, trace[b], shade[b], occlude[b],
-resolve) and once under ``torch.profiler`` for device time by kernel
+stage of the staged loop's active path (by default the stage graphs
+trace[b], shade_occlude[b] and resolve; under ``TPURT_FUSE_STAGES=0``
+raygen, trace[b], shade[b], occlude[b] and resolve; under
+``TPURT_FUSE_BOUNCES=1`` the batch alone) and the raster scatter, and
+once under ``torch.profiler`` for device time by kernel
 name and the device's busy share of the batch's wall time. With
 ``bvh_packet`` it also reports the walk's counters on the primary wave
 (node steps and leaf rows, summed over its rays). The switches
@@ -115,7 +118,10 @@ def nvidia_smi_line() -> str:
 
 
 def _stage_times(renderer, cam, seed):
-    """Device ms per stage of one batch (CUDA events, no host syncs)."""
+    """Device ms per stage of one batch of the renderer's active loop
+    (CUDA events between its stages — between the graphs' replays where
+    it runs them; the whole batch is one stage; no host syncs), and the
+    raster scatter as "frame"."""
     import torch
 
     marks = []
@@ -126,19 +132,8 @@ def _stage_times(renderer, cam, seed):
         marks.append((name, ev))
 
     mark("start")
-    sampler = renderer.sampler(seed, 0)
-    state = renderer.raygen(cam, seed, 0)
-    mark("raygen")
-    for b in range(renderer.config.max_bounces + 1):
-        hit, state = renderer.trace(state, b)
-        mark(f"trace[{b}]")
-        state, shadow = renderer.shade(state, hit, sampler, b)
-        mark(f"shade[{b}]")
-        if shadow is not None:
-            state = renderer.occlude(state, shadow, b)
-            mark(f"occlude[{b}]")
-    renderer.resolve(state)
-    mark("resolve")
+    renderer.frame(*renderer.shard(cam, seed, 0, mark=mark))
+    mark("frame")
     torch.cuda.synchronize()
     return {name: marks[i - 1][1].elapsed_time(ev)
             for i, (name, ev) in enumerate(marks) if i}
@@ -219,6 +214,9 @@ def profile_batch(preset: str = "bunny", **overrides) -> dict:
         "pairs_per_tile": config.pairs_per_tile,
         "pairs_per_ray": config.pairs_per_ray,
         "pair_overflow": bool(counts[2] > 0),
+        "loop": renderer.mode,
+        "stage_graphs": renderer.graphs,
+        "graph_reason": renderer.graph_reason,
         "rays": rays,
         "batch_s": wall,
         "mrays_per_s": rays / wall / 1e6,

@@ -1429,39 +1429,30 @@ def keep_graphs() -> None:
 
 def graph_kernel_nodes(graph) -> dict:
     """The kernel nodes of a captured graph, by DEVICE_KERNELS name, read
-    through libcuda (cuGraphGetNodes, cuGraphKernelNodeGetParams,
-    cuFuncGetName or, for a library kernel, cuKernelGetName)."""
+    through libcuda (``profiling.graph_nodes``,
+    cuGraphKernelNodeGetParams, cuFuncGetName or, for a library kernel,
+    cuKernelGetName)."""
     import ctypes
 
-    cu = ctypes.CDLL("libcuda.so.1")
+    from tpurt_torch.utils.profiling import cu_call, graph_nodes, node_type
 
-    def call(fn, *args):
-        err = fn(*args)
-        if err:
-            raise RuntimeError(f"{fn.__name__} failed: CUresult {err}")
-
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    call(cu.cuGraphGetNodes, handle, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call(cu.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
     out = {}
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        call(cu.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+    for node in graph_nodes(graph.raw_cuda_graph()):
+        if node_type(node) != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
         params = (ctypes.c_byte * 128)()
-        call(cu.cuGraphKernelNodeGetParams_v2, ctypes.c_void_p(node), params)
+        cu_call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                params)
         func = ctypes.c_void_p.from_buffer(params, 0).value
         kern = ctypes.c_void_p.from_buffer(params, 56).value
         symbol = ctypes.c_char_p()
         if func:
-            call(cu.cuFuncGetName, ctypes.byref(symbol), ctypes.c_void_p(func))
+            cu_call("cuFuncGetName", ctypes.byref(symbol),
+                    ctypes.c_void_p(func))
         else:
-            call(cu.cuKernelGetName, ctypes.byref(symbol),
-                 ctypes.c_void_p(kern))
+            cu_call("cuKernelGetName", ctypes.byref(symbol),
+                    ctypes.c_void_p(kern))
         name = kernel_of_symbol(symbol.value.decode())
         if name is not None:
             out[name] = out.get(name, 0) + 1
@@ -1473,7 +1464,7 @@ def check_graph_nodes(label: str, renderer) -> None:
     are its capture's tally: hold each graph's tally to the kernel nodes
     libcuda holds for it (captured after ``keep_graphs``)."""
     total = {}
-    for k, (graph, tally) in enumerate(renderer._graphs):
+    for k, (graph, tally, _) in enumerate(renderer._graphs):
         counts = {}
         for (fn, attr, key), n in tally.items():
             if attr == "launches" and fn.__name__ == "tileloop_cuda":

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from tpurt_torch.utils import profiling
+
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
@@ -59,25 +61,28 @@ class PixelSampler(NamedTuple):
         """``seed`` and ``sample_index`` are ints or tensors (on
         ``pixel_id``'s device: the staged loop passes its input buffers,
         so a captured graph reads the batch's values)."""
-        pixel_id = _u32(pixel_id)
-        dev = pixel_id.device
-        s = pcg_hash(torch.as_tensor(seed, device=dev))
-        s = pcg_hash((s + _u32(torch.as_tensor(sample_index, device=dev)))
-                     & _M32)
-        base = pcg_hash((s + _mul32(pixel_id, _GOLDEN)) & _M32)
-        return PixelSampler(base=base)
+        with profiling.step("rng"):
+            pixel_id = _u32(pixel_id)
+            dev = pixel_id.device
+            s = pcg_hash(torch.as_tensor(seed, device=dev))
+            s = pcg_hash((s + _u32(torch.as_tensor(sample_index,
+                                                   device=dev))) & _M32)
+            base = pcg_hash((s + _mul32(pixel_id, _GOLDEN)) & _M32)
+            return PixelSampler(base=base)
 
     def u01(self, tag) -> torch.Tensor:
         """One uniform in [0, 1) per pixel for a draw-site tag: a static
         Python int (its term is computed on the host, so no tensor is
         copied to the device — the staged loop's CUDA graphs capture
         this) or a per-ray tensor (the wavefront loop's bounce)."""
-        if isinstance(tag, int):
-            t = _mul32(tag & _M32, _GOLDEN)
-        else:
-            t = _mul32(_u32(torch.as_tensor(tag, device=self.base.device)),
-                       _GOLDEN)
-        return _to_unit_float(pcg_hash((self.base + t) & _M32))
+        with profiling.step("rng"):
+            if isinstance(tag, int):
+                t = _mul32(tag & _M32, _GOLDEN)
+            else:
+                t = _mul32(_u32(torch.as_tensor(tag,
+                                                device=self.base.device)),
+                           _GOLDEN)
+            return _to_unit_float(pcg_hash((self.base + t) & _M32))
 
     def u2(self, tag) -> torch.Tensor:
         """(..., 2) uniforms — two consecutive tags."""

@@ -74,6 +74,7 @@ from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG, DEAD_KEY, EPS_DENOM, \
     _expand_bits7, _quantize, _ray_sort_keys
 from tpurt_torch.render.intersectors import Hit
+from tpurt_torch.utils import profiling
 
 TILE = 1024  # rays per tile (= threads per traversal block)
 LANES = 128  # entry-slab columns pad to a multiple of this
@@ -1172,25 +1173,28 @@ def _trace_entry_rows(org, dirn, tmv, lo, hi, tri_rows, scale, *,
     ``tl``: the two-level and supercluster tables for K1. Returns ((bt,
     bu, bv, bs[, bi]), n_pairs, overflow)."""
     n_tiles = org.shape[0] // TILE
-    inv_d = _safe_inv(dirn)
-    overflow = torch.zeros((), dtype=torch.bool, device=org.device)
-    if exact and fused and pairs_per_tile <= 0:
-        entry = exact_entries(org, inv_d, tmv, lo, hi, scale)
-        counts = (entry != INT32_MAX).sum(dim=1, dtype=torch.int32)
-    else:
-        if exact:
-            mask, tn = exact_mask(org, inv_d, tmv, lo, hi)
+    with profiling.step("entries"):
+        inv_d = _safe_inv(dirn)
+        overflow = torch.zeros((), dtype=torch.bool, device=org.device)
+        if exact and fused and pairs_per_tile <= 0:
+            entry = exact_entries(org, inv_d, tmv, lo, hi, scale)
+            counts = (entry != INT32_MAX).sum(dim=1, dtype=torch.int32)
         else:
-            mask, tn = _tile_mask(org, dirn, tmv, lo, hi, n_tiles,
-                                  return_tn=True)
-        if pairs_per_tile > 0:
-            mask, counts, overflow = _clamp_rows(mask, pairs_per_tile)
-        else:
-            counts = mask.sum(dim=1, dtype=torch.int32)
-        entry = _pack_entries(mask, tn, scale)
-    entry = torch.sort(entry, dim=1).values  # per-row front-to-back
-    out = tileloop(org, dirn, inv_d, tmv, tri_rows, entry, counts, scale,
-                   any_hit, **tl)
+            if exact:
+                mask, tn = exact_mask(org, inv_d, tmv, lo, hi)
+            else:
+                mask, tn = _tile_mask(org, dirn, tmv, lo, hi, n_tiles,
+                                      return_tn=True)
+            if pairs_per_tile > 0:
+                mask, counts, overflow = _clamp_rows(mask, pairs_per_tile)
+            else:
+                counts = mask.sum(dim=1, dtype=torch.int32)
+            entry = _pack_entries(mask, tn, scale)
+    with profiling.step("sort"):
+        entry = torch.sort(entry, dim=1).values  # per-row front-to-back
+    with profiling.step("walk"):
+        out = tileloop(org, dirn, inv_d, tmv, tri_rows, entry, counts, scale,
+                       any_hit, **tl)
     return out, counts.sum(dtype=torch.float32), overflow
 
 
@@ -1206,8 +1210,9 @@ def _trace_all_pairs(org, dirn, tmv, tri_rows, n_clusters, *, any_hit, tl):
     entry = entry[None].expand(n_tiles, n_clusters).contiguous()
     counts = torch.full((n_tiles,), n_clusters, dtype=torch.int32,
                         device=dev)
-    out = tileloop(org, dirn, _safe_inv(dirn), tmv, tri_rows, entry, counts,
-                   0.0, any_hit, **tl)
+    with profiling.step("walk"):
+        out = tileloop(org, dirn, _safe_inv(dirn), tmv, tri_rows, entry,
+                       counts, 0.0, any_hit, **tl)
     return out, torch.full((), float(n_tiles * n_clusters), device=dev)
 
 
@@ -1229,7 +1234,9 @@ def _segment_lists(org, dirn, inv_d, tmv, lo, hi, scale, *, exact,
         mask, pairs_per_tile if pairs_per_tile > 0 else n_c + 1)
     total = counts.sum(dtype=torch.int64)
     overflow = overflow | (total > pcap)
-    entry = torch.sort(_pack_entries(mask, tn, scale), dim=1).values
+    entry = _pack_entries(mask, tn, scale)
+    with profiling.step("sort"):
+        entry = torch.sort(entry, dim=1).values
     off, pair_cl = _rows_to_segments(entry, counts, cap=pcap)
     return off, pair_cl, total.to(torch.float32), overflow
 
@@ -1307,7 +1314,8 @@ def _grid_list(org, dirn, tmv, lo, hi, *, n_clusters, pair_cap,
     real_key[:ridx.shape[0]] = ((ridx // n_clusters) * (n_clusters + 1)
                                 + ridx % n_clusters + 1)
     sent_key = torch.arange(n_tiles, device=dev) * (n_clusters + 1)
-    keys = torch.sort(torch.cat([sent_key, real_key])).values
+    with profiling.step("sort"):
+        keys = torch.sort(torch.cat([sent_key, real_key])).values
     valid = keys < INT32_MAX
     pair_tile = torch.where(valid, keys // (n_clusters + 1), n_tiles - 1)
     pair_cl = torch.where(valid, keys % (n_clusters + 1) - 1, -1)
@@ -1547,9 +1555,10 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         perm = None
         if sort in ("morton", "octant"):
             keyfn = _ray_sort_keys if sort == "morton" else _octant_sort_keys
-            keys = keyfn(org, dirn, tmv, lo_all, hi_all)
-            perm = torch.sort(keys, stable=True).indices
-            org, dirn, tmv = org[perm], dirn[perm], tmv[perm]
+            with profiling.step("sort"):
+                keys = keyfn(org, dirn, tmv, lo_all, hi_all)
+                perm = torch.sort(keys, stable=True).indices
+                org, dirn, tmv = org[perm], dirn[perm], tmv[perm]
         n_full = n_tiles * TILE
         if live_trunc and perm is not None:
             kt = min(n_tiles, -(-int(live_trunc) // TILE))
@@ -1595,10 +1604,11 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
             # un-permute only what the caller reads: any-hit waves only bs
             keep = (3,) if any_hit else range(len(out))
             restored = list(out)
-            for k in keep:
-                r = torch.empty_like(out[k])
-                r[perm] = out[k]
-                restored[k] = r
+            with profiling.step("sort"):
+                for k in keep:
+                    r = torch.empty_like(out[k])
+                    r[perm] = out[k]
+                    restored[k] = r
             out = tuple(restored)
         stats = torch.stack([n_pairs, overflow.to(torch.float32), live_over])
         return tuple(f[:n] for f in out), stats

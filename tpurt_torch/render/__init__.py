@@ -38,6 +38,12 @@ A staged renderer runs its stage programs as CUDA graphs on the card
 the renderer, before the timed batches, as the reference prewarms its
 stage executables; a flythrough's frames replay them with each frame's
 camera.
+
+While the recorder is on (``tpurt_torch.utils.profiling.record``) a call
+records its spans: ``render`` (the call), ``caps``, ``scene_context``
+(``accel.build`` inside on a miss), ``renderer.build``, ``prewarm``, a
+``batch`` a batch (``accumulate`` inside, and the staged loop's own
+spans) and ``readback``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from tpurt_torch.render.intersectors import scene_meta
 from tpurt_torch.render.png import write_png
 from tpurt_torch.scene.device import to_device, torch_device
 from tpurt_torch.scene.loader import load_scene
+from tpurt_torch.utils import profiling
 from tpurt_torch.utils.config import RenderConfig, get_config
 
 # the switches a renderer reads when it is built (the tile intersector's
@@ -176,7 +183,8 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
         _SCENE_CACHE.clear()
         meta = scene_meta(scene)
         ds = to_device(scene, device=device)
-        accel = build_accel(config, ds, meta, scene=scene, device=device)
+        with profiling.span("accel.build"):
+            accel = build_accel(config, ds, meta, scene=scene, device=device)
         ctx = {"scene": scene, "meta": meta, "ds": ds, "accel": accel}
         _SCENE_CACHE[key] = ctx
         if scene_key[0] == "preset":
@@ -204,7 +212,7 @@ def render_scene(
     accumulation. Measured live-wave caps (``utils.autotune``) apply when
     the config carries none and ``TPURT_LIVE_TRUNC`` is not "0"; if a cap
     cut alive rays (stats ``live_overflow``), the frame is re-rendered
-    uncapped with a warning. Under ``TPURT_AUTOTUNE_WRITE=1`` an uncapped
+    uncapped with a warning (stats ``rerenders`` counts them). Under ``TPURT_AUTOTUNE_WRITE=1`` an uncapped
     render records its live and want counts (``autotune.record``).
 
     ``readback_stats=False`` keeps the ray counters on the device: the
@@ -225,6 +233,13 @@ def render_scene(
     into a RuntimeWarning and returns the truncated image (the stats
     still record the overflow).
     """
+    with profiling.span("render"):
+        return _render_scene(config, scene, camera, state, verbose,
+                             readback_stats, max_budget_retries, device)
+
+
+def _render_scene(config, scene, camera, state, verbose, readback_stats,
+                  max_budget_retries, device):
     from tpurt_torch.utils import autotune
 
     device = torch_device(device)
@@ -237,21 +252,24 @@ def render_scene(
                                 config.n_tile_shards, device=device)
         device = mesh.device
     if os.environ.get("TPURT_LIVE_TRUNC", "1") == "1":
-        if not config.live_caps:
-            caps = autotune.live_caps_for(config)
-            if caps:
-                config = dataclasses.replace(config, live_caps=caps)
-        if not config.shadow_caps and config.use_nee:
-            scaps = autotune.want_caps_for(config)
-            if scaps:
-                config = dataclasses.replace(config, shadow_caps=scaps)
-    ctx = _scene_context(config, scene, device, mesh)
-    retries = 0
+        with profiling.span("caps"):
+            if not config.live_caps:
+                caps = autotune.live_caps_for(config)
+                if caps:
+                    config = dataclasses.replace(config, live_caps=caps)
+            if not config.shadow_caps and config.use_nee:
+                scaps = autotune.want_caps_for(config)
+                if scaps:
+                    config = dataclasses.replace(config, shadow_caps=scaps)
+    with profiling.span("scene_context"):
+        ctx = _scene_context(config, scene, device, mesh)
+    retries = rerenders = 0
     while True:
         out_state, stats = _render_scene_once(config, ctx, camera, state,
                                               verbose, device,
                                               readback_stats, mesh)
         stats["budget_retries"] = retries
+        stats["rerenders"] = rerenders
         if (not config.live_caps
                 and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
             autotune.record(config, stats)
@@ -262,6 +280,7 @@ def render_scene(
                 "re-rendering uncapped",
                 RuntimeWarning,
             )
+            rerenders += 1
             config = dataclasses.replace(config, live_caps=(),
                                          shadow_caps=())
             continue
@@ -379,8 +398,10 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
         # the old renderer (and its graphs) go before new ones are made
         ctx.pop("renderer", None)
         ctx.pop("renderer_key", None)
-        renderer = _make_renderer(config, ctx, device, mesh)
-        _prewarm(renderer, cam, state, verbose)
+        with profiling.span("renderer.build"):
+            renderer = _make_renderer(config, ctx, device, mesh)
+        with profiling.span("prewarm"):
+            _prewarm(renderer, cam, state, verbose)
         ctx["renderer"], ctx["renderer_key"] = renderer, key
     renderer = ctx["renderer"]
 
@@ -395,22 +416,25 @@ def _render_scene_once(config, ctx, camera, state, verbose, device,
     t0 = time.perf_counter()
     total_rays = None
     for _ in range(int(state.batch_index), n_batches):
-        radiance_sum, counts = renderer(cam, state.seed, state.n_samples)
-        state = fb.accumulate(state, radiance_sum, spp_batch)
-        total_rays = counts if total_rays is None else total_rays + counts
+        with profiling.span("batch"):
+            radiance_sum, counts = renderer(cam, state.seed, state.n_samples)
+            with profiling.span("accumulate"):
+                state = fb.accumulate(state, radiance_sum, spp_batch)
+            total_rays = counts if total_rays is None else total_rays + counts
         if verbose:
             sync()
             print(f"  batch {state.batch_index}/{n_batches} "
                   f"({state.n_samples} spp) "
                   f"{time.perf_counter() - t0:.3f}s")
-    sync()
-    elapsed = time.perf_counter() - t0
     mb = config.max_bounces
     estimated = not readback_stats or total_rays is None
-    if not estimated:
-        # counters are read back after the timed section
-        rays = total_rays.cpu().numpy()
-    else:
+    with profiling.span("readback"):
+        sync()
+        elapsed = time.perf_counter() - t0
+        if not estimated:
+            # counters are read back after the timed section
+            rays = total_rays.cpu().numpy()
+    if estimated:
         # the analytic count: one closest ray per path vertex, and with
         # NEE one shadow ray per vertex, for the samples accumulated
         closest_ps = config.width * config.height * (1 + mb)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.scene.device import torch_device
+from tpurt_torch.utils import profiling
 
 
 class FrameState(NamedTuple):
@@ -63,19 +64,23 @@ def accumulate(state: FrameState, radiance_sum: torch.Tensor,
 
 def resolve(state: FrameState) -> torch.Tensor:
     """Mean radiance image (H, W, 3) f32 linear."""
-    return state.accum / float(max(int(state.n_samples), 1))
+    with profiling.span("deliver.resolve"):
+        return state.accum / float(max(int(state.n_samples), 1))
 
 
 def tonemap(linear: torch.Tensor, exposure: float = 1.0,
             gamma: float = 2.2) -> torch.Tensor:
     """Clamp + gamma tonemap → display-space f32 in [0, 1]."""
-    x = torch.clamp(linear * exposure, 0.0, 1.0)
-    return x ** (1.0 / gamma)
+    with profiling.span("deliver.tonemap"):
+        x = torch.clamp(linear * exposure, 0.0, 1.0)
+        return x ** (1.0 / gamma)
 
 
 def pack_u8(display: torch.Tensor) -> torch.Tensor:
     """Display-space f32 [0,1] → uint8 with round-half-away."""
-    return torch.clamp(display * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    with profiling.span("deliver.pack"):
+        return torch.clamp(display * 255.0 + 0.5, 0.0,
+                           255.0).to(torch.uint8)
 
 
 def to_png_array(state: FrameState, exposure: float = 1.0) -> np.ndarray:

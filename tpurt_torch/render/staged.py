@@ -73,14 +73,26 @@ writes the default loop's real waves as ``.npz`` before they are traced:
 ``shadow{b}_wave.npz`` (``org``, ``dirn``, ``tmax``, ``want``), the
 reference's names and keys; it forces the default (unsorted, unfused)
 loop, as there, and takes a single-process render (a rank holds only its
-shard). ``TPURT_DEBUG_STAGES=1`` waits for the device after each stage
-and prints its wall time as ``    [stage] <name>: X.XXs`` (under fusion
-the reference's fused names, ``trace[b]`` and ``shade_occlude[b]``).
-Neither changes the image.
+shard). ``TPURT_DEBUG_STAGES=1`` waits for the device at the end of each
+stage's span and prints its wall time as ``    [stage] <name>: X.XXs``
+(under fusion the reference's fused names, ``trace[b]`` and
+``shade_occlude[b]``). Neither changes the image.
+
+Spans (``tpurt_torch.utils.profiling``, recorded only while the recorder
+is on): a batch's ``set_inputs``, each stage program's ``replay:<stage>``
+(or ``eager:<stage>``), ``clone`` and ``frame``; ``graphs.capture``
+around a capture. Inside the stage programs the steps (``raygen``,
+``rng``, ``sort``, ``entries``, ``walk``, ``trace``, ``shade``,
+``occlude``, ``sums``) are ``profiling.step``s: spans where the program
+runs eagerly, and, while a stage graph is captured, the op-node range
+that each step made, which the graph keeps beside its launches and each
+replay's span carries, so a device trace's records of one replay can be
+told apart by step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -104,6 +116,7 @@ from tpurt_torch.render.integrator import (
 )
 from tpurt_torch.render.intersectors import SceneMeta
 from tpurt_torch.scene.device import torch_device
+from tpurt_torch.utils import profiling
 from tpurt_torch.utils.config import RenderConfig
 
 # stages TPURT_DEBUG_STAGES does not print (the reference prints none)
@@ -202,7 +215,6 @@ class StagedRenderer:
         # when built
         self.capture = os.environ.get("TPURT_CAPTURE_WAVES") or None
         self.debug = os.environ.get("TPURT_DEBUG_STAGES") == "1"
-        self._mark = 0.0
         if self.capture and mesh is not None:
             raise ValueError("TPURT_CAPTURE_WAVES captures a single-process "
                              "render: a rank holds only its shard's waves")
@@ -296,7 +308,9 @@ class StagedRenderer:
             self.graph_reason = next((r for r in reads if r), "")
         self.graphs = (bool(graphs) and device.type == "cuda"
                        and not self.graph_reason)
-        self._graphs = None  # [(CUDAGraph, launches a replay adds)]
+        # [(CUDAGraph, launches a replay adds, its op nodes and its steps'
+        # node ranges: profiling.NodeMarks.nodes)]
+        self._graphs = None
         self._static_out = None  # the last graph's outputs
 
     # --- the batch's inputs ------------------------------------------------
@@ -304,11 +318,12 @@ class StagedRenderer:
     def set_inputs(self, cam: Camera, seed, sample0) -> None:
         """Fill the input buffers with the batch's camera, seed and first
         sample (the shard's: ``sample_offset`` added)."""
-        packed = torch.cat([torch.as_tensor(f).to("cpu", torch.float32)
-                            .reshape(-1) for f in cam])
-        self.cam_buf.copy_(packed)
-        self.seed_buf.fill_(int(seed))
-        self.sample0_buf.fill_(int(sample0) + self.sample_offset)
+        with profiling.span("set_inputs"):
+            packed = torch.cat([torch.as_tensor(f).to("cpu", torch.float32)
+                                .reshape(-1) for f in cam])
+            self.cam_buf.copy_(packed)
+            self.seed_buf.fill_(int(seed))
+            self.sample0_buf.fill_(int(sample0) + self.sample_offset)
 
     def camera(self) -> Camera:
         """The camera of the input buffer (views of it)."""
@@ -317,16 +332,24 @@ class StagedRenderer:
 
     # --- the stages ---------------------------------------------------------
 
-    def _stage(self, name: str) -> None:
-        """``TPURT_DEBUG_STAGES``: wait for the device, then print the
-        stage's wall time since the previous mark."""
-        if not self.debug or name in _SILENT:
-            return
+    def _stage(self, kind: str, name: str, nodes=None, quiet=False):
+        """The span of stage program ``name`` (``kind``: "replay" of its
+        graph, whose ``nodes`` the span carries, or "eager"); under
+        ``TPURT_DEBUG_STAGES`` (not ``quiet``) it waits for the device at
+        its end and prints its wall time."""
+        if not self.debug or quiet or name in _SILENT:
+            return profiling.span(f"{kind}:{name}", nodes=nodes)
+        return self._debug_stage(f"{kind}:{name}", name, nodes)
+
+    @contextlib.contextmanager
+    def _debug_stage(self, span: str, name: str, nodes):
+        t0 = time.perf_counter()
+        with profiling.span(span, nodes=nodes):
+            yield
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        print(f"    [stage] {name}: {now - self._mark:.2f}s", flush=True)
-        self._mark = now
+        print(f"    [stage] {name}: {time.perf_counter() - t0:.2f}s",
+              flush=True)
 
     def _capture(self, name: str, **arrays) -> None:
         """``TPURT_CAPTURE_WAVES``: the wave's arrays as ``<dir>/<name>.npz``
@@ -339,6 +362,10 @@ class StagedRenderer:
         return PixelSampler.make(seed, sample0 + self.ds_r, self.pid)
 
     def raygen(self, cam: Camera, seed, sample0) -> WaveState:
+        with profiling.step("raygen"):
+            return self._raygen(cam, seed, sample0)
+
+    def _raygen(self, cam: Camera, seed, sample0) -> WaveState:
         c = self.config
         n, dev = self.n, self.device
         uj = self.sampler(seed, sample0).u2(TAG_JITTER)
@@ -358,15 +385,21 @@ class StagedRenderer:
 
     def trace(self, state: WaveState, bounce: int):
         """Closest-hit trace of the wave (one intersector call)."""
-        rays = state.rays.clone()
-        rays[0] += state.alive.sum()
-        tmax = torch.where(state.alive, math.inf, -1.0)
-        hit = traced(self.closest[bounce], rays, state.org, state.dirn, tmax)
-        return hit, state._replace(rays=rays)
+        with profiling.step("trace"):
+            rays = state.rays.clone()
+            rays[0] += state.alive.sum()
+            tmax = torch.where(state.alive, math.inf, -1.0)
+            hit = traced(self.closest[bounce], rays, state.org, state.dirn,
+                         tmax)
+            return hit, state._replace(rays=rays)
 
     def shade(self, state: WaveState, hit, sampler, bounce: int):
         """Miss/emission events, NEE shadow-ray setup, bounce sampling.
         Returns (next wave, shadow tuple or None)."""
+        with profiling.step("shade"):
+            return self._shade(state, hit, sampler, bounce)
+
+    def _shade(self, state: WaveState, hit, sampler, bounce: int):
         c, ds = self.config, self.ds
         n = state.org.shape[0]
         alive = state.alive
@@ -425,30 +458,34 @@ class StagedRenderer:
     def occlude(self, state: WaveState, shadow, bounce: int) -> WaveState:
         """Any-hit trace of the shadow rays; unoccluded ones add their
         light contribution."""
-        s_org, s_dir, s_tmax, contrib, want = shadow
-        n_want = want.sum()
-        rays = state.rays.clone()
-        rays[1] += n_want
-        rays[self.want0 + bounce] += n_want
-        occluded = traced(self.occluders[bounce], rays, s_org, s_dir, s_tmax)
-        radiance = state.radiance + torch.where(
-            (want & ~occluded)[:, None], contrib, 0.0)
-        return state._replace(radiance=radiance, rays=rays)
+        with profiling.step("occlude"):
+            s_org, s_dir, s_tmax, contrib, want = shadow
+            n_want = want.sum()
+            rays = state.rays.clone()
+            rays[1] += n_want
+            rays[self.want0 + bounce] += n_want
+            occluded = traced(self.occluders[bounce], rays, s_org, s_dir,
+                              s_tmax)
+            radiance = state.radiance + torch.where(
+                (want & ~occluded)[:, None], contrib, 0.0)
+            return state._replace(radiance=radiance, rays=rays)
 
     def flat_shade(self, state: WaveState, hit) -> WaveState:
         """Flat shading: the hit's albedo, the background on a miss."""
-        attrs = self.resolver(state.org, state.dirn, hit.t, hit.u, hit.v,
-                              hit.tri, hit.inst, hit.slot)
-        radiance = torch.where(hit.valid[:, None], attrs.albedo,
-                               self.ds.background)
-        return state._replace(radiance=radiance)
+        with profiling.step("shade"):
+            attrs = self.resolver(state.org, state.dirn, hit.t, hit.u,
+                                  hit.v, hit.tri, hit.inst, hit.slot)
+            radiance = torch.where(hit.valid[:, None], attrs.albedo,
+                                   self.ds.background)
+            return state._replace(radiance=radiance)
 
     def pixel_sums(self, state: WaveState):
         """The shard's per-pixel sample sums (s0 + s1 + …) in tile order,
         and its counters."""
-        total = state.radiance.reshape(self.config.spp_per_batch,
-                                       self.n_local, 3).sum(dim=0)
-        return total, state.rays
+        with profiling.step("sums"):
+            total = state.radiance.reshape(self.config.spp_per_batch,
+                                           self.n_local, 3).sum(dim=0)
+            return total, state.rays
 
     def frame(self, total, rays):
         """Per-pixel sums in tile order → ((H, W, 3) raster image,
@@ -470,22 +507,24 @@ class StagedRenderer:
     def sort_wave(self, state: WaveState) -> WaveState:
         """The wave in the next trace's coherence order (octant, then
         origin Morton; dead rays last), every per-ray field along."""
-        tmv = torch.where(state.alive, BIG, -1.0)
-        keys = _octant_sort_keys(state.org, state.dirn, tmv, self.lo_all,
-                                 self.hi_all)
-        perm = torch.sort(keys, stable=True).indices
-        return WaveState(*(f[perm] for f in state[:-1]), rays=state.rays)
+        with profiling.step("sort"):
+            tmv = torch.where(state.alive, BIG, -1.0)
+            keys = _octant_sort_keys(state.org, state.dirn, tmv, self.lo_all,
+                                     self.hi_all)
+            perm = torch.sort(keys, stable=True).indices
+            return WaveState(*(f[perm] for f in state[:-1]), rays=state.rays)
 
     def resolve_sorted(self, state: WaveState, tails):
         """Every ray (the wave's and the cut tails' (radiance, pix,
         sample)) back to its position by its carried ids, then the
         positional resolve."""
-        rad = torch.cat([state.radiance] + [t[0] for t in tails])
-        pix = torch.cat([state.pix] + [t[1] for t in tails])
-        smp = torch.cat([state.sample] + [t[2] for t in tails])
-        radiance = torch.empty_like(rad)
-        radiance[smp * self.n_px + self.pos_of_pix[pix]] = rad
-        return self.pixel_sums(state._replace(radiance=radiance))
+        with profiling.step("sums"):
+            rad = torch.cat([state.radiance] + [t[0] for t in tails])
+            pix = torch.cat([state.pix] + [t[1] for t in tails])
+            smp = torch.cat([state.sample] + [t[2] for t in tails])
+            radiance = torch.empty_like(rad)
+            radiance[smp * self.n_px + self.pos_of_pix[pix]] = rad
+            return self.pixel_sums(state._replace(radiance=radiance))
 
     # --- the stage programs (each reads the input buffers) ----------------
 
@@ -616,27 +655,36 @@ class StagedRenderer:
 
     # --- the CUDA graphs ----------------------------------------------------
 
-    def _capture_graphs(self, mark):
+    def _capture_graphs(self, quiet=False):
         """Each stage program run eagerly on a side stream (the warm-up:
         lazy module loads and the kernels' one-time attributes happen
         outside any capture), then captured into a graph of the shared
-        pool on the warm-up chain's twin of static tensors. Returns the
-        warm-up chain's outputs: this batch's result."""
+        pool on the warm-up chain's twin of static tensors, its steps'
+        node ranges marked (``profiling.node_marks``). Returns the warm-up
+        chain's outputs: this batch's result. ``quiet``: no
+        ``TPURT_DEBUG_STAGES`` lines (prewarm)."""
         dev = self.device
         pool = torch.cuda.graph_pool_handle()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        graphs, warm, static = [], None, None
-        with torch.cuda.stream(side):
+        graphs, warm, static, pool_bytes = [], None, None, 0
+        with profiling.span("graphs.capture"), torch.cuda.stream(side):
             for name, fn in self.programs():
-                warm = fn(warm)
-                mark(name)
+                with self._stage("eager", name, quiet=quiet):
+                    warm = fn(warm)
                 graph = torch.cuda.CUDAGraph()
                 before = kernels.launch_snapshot()
                 with torch.cuda.graph(graph, pool=pool):
-                    static = fn(static)
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    reserved = torch.cuda.memory_reserved(dev)
+                    with profiling.node_marks(
+                            profiling.CaptureOpNodes(stream)) as marks:
+                        static = fn(static)
+                    pool_bytes += torch.cuda.memory_reserved(dev) - reserved
                 # a capture launches nothing: its counts go to the replays
-                graphs.append((graph, kernels.take_launches_since(before)))
+                graphs.append((graph, kernels.take_launches_since(before),
+                               marks.nodes()))
+        profiling.count("graphs.pool_bytes", pool_bytes)
         current = torch.cuda.current_stream(dev)
         current.wait_stream(side)
         for t in warm:  # made on the side stream, read on this one
@@ -661,38 +709,38 @@ class StagedRenderer:
             return 0
         if self._graphs is None:
             self.set_inputs(cam, seed, sample0)
-            self._capture_graphs(lambda name: None)
+            self._capture_graphs(quiet=True)
         return len(self._graphs)
 
     # --- a batch ------------------------------------------------------------
 
-    def shard(self, cam: Camera, seed: int, sample0: int, mark=None):
+    def shard(self, cam: Camera, seed: int, sample0: int):
         """The batch's samples [sample0, sample0 + spp) on this shard:
         (its per-pixel sums in tile order, pads included; its counters).
-        A sample shard draws its own window of them. ``mark(name)`` is
-        called after each stage (by default the ``TPURT_DEBUG_STAGES``
-        line)."""
-        mark = self._stage if mark is None else mark
+        A sample shard draws its own window of them."""
         self.set_inputs(cam, seed, sample0)
-        self._mark = time.perf_counter()
         programs = self.programs()
         if not self.graphs:
             carry = None
             for name, fn in programs:
-                carry = fn(carry)
-                mark(name)
+                with self._stage("eager", name):
+                    carry = fn(carry)
             return carry
         if self._graphs is None:
-            return self._capture_graphs(mark)
-        for (name, _), (graph, launches) in zip(programs, self._graphs):
-            graph.replay()
+            return self._capture_graphs()
+        for (name, _), (graph, launches, nodes) in zip(programs,
+                                                       self._graphs):
+            with self._stage("replay", name, nodes):
+                graph.replay()
             kernels.add_launches(launches)
-            mark(name)
         # the next replay overwrites the static outputs
-        return tuple(t.clone() for t in self._static_out)
+        with profiling.span("clone"):
+            return tuple(t.clone() for t in self._static_out)
 
     def __call__(self, cam: Camera, seed: int, sample0: int):
-        return self.frame(*self.shard(cam, seed, sample0))
+        total, rays = self.shard(cam, seed, sample0)
+        with profiling.span("frame"):
+            return self.frame(total, rays)
 
 
 def make_staged_renderer(ds, accel, *, meta: SceneMeta, config: RenderConfig,

@@ -1237,6 +1237,114 @@ def check_kernels(device) -> list:
     ]
 
 
+# S1's bytes a ray (csrc/shade.cu), each read or written once: in, the
+# wave's org, dirn, radiance and throughput (4 x 12), alive and
+# allow_emission (2 x 1), pix and sample (2 x 8), the hit's t, u, v (3 x
+# 4), slot (4) and valid (1); out, the next wave's four vectors (4 x 12)
+# and two masks (2 x 1), the shadow ray's org and dir (2 x 12), tmax (4),
+# contribution (12) and want (1). A shade record (32 f32) is read once for
+# each record the wave's hits reach. Its operations (a few hundred a hit)
+# take under a third of the bytes' time at the f32 rate: bytes bound it.
+SHADE_IN_BYTES = 4 * 12 + 2 + 2 * 8 + 3 * 4 + 4 + 1
+SHADE_OUT_BYTES = 4 * 12 + 2 + 2 * 12 + 4 + 12 + 1
+SHADE_ROW_BYTES = 32 * 4
+SHADE_REL, SHADE_ABS = 1e-5, 1e-6  # tests/test_torch_shade.py
+
+
+def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
+    """S1 on the three waves of one batch of the preset (the primary
+    wave, then each bounce wave as the staged loop hands it over, at the
+    preset's size): the kernel alone, mean of 10 launches by CUDA events,
+    against the loop's PyTorch shade (``_shade`` with the batch's
+    PixelSampler made: the same function in PyTorch's kernels, its
+    ``library_ms``), held to it as ``tests/test_torch_shade.py`` holds
+    it (masks and counters equal; a ray's floats within 1e-5 relative,
+    1e-6 absolute), beside the bytes bound. Returns the kernel table's
+    record."""
+    import torch
+
+    from tpurt_torch.render import build_accel
+    from tpurt_torch.render.intersectors import scene_meta
+    from tpurt_torch.render.staged import StagedRenderer
+    from tpurt_torch.scene.device import to_device
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    config = get_config(name, spp=spp, spp_per_batch=spp)
+    scene = load_scene(config.scene)
+    meta = scene_meta(scene)
+    ds = to_device(scene, device=device)
+    accel = build_accel(config, ds, meta, scene=scene, device=device)
+    r = StagedRenderer(ds, accel, meta=meta, config=config, device=device)
+    if r.shade_path != "cuda":
+        raise AssertionError(f"{name}: shade path {r.shade_path} "
+                             f"({r.shade_reason})")
+    r.set_inputs(scene.camera, config.seed, 0)
+    state = r.raygen(r.camera(), r.seed_buf, r.sample0_buf)
+    waves = []
+    for bounce in range(config.max_bounces + 1):
+        hit, state = r.trace(state, bounce)
+        plain = lambda: r._shade(state, hit, r.sampler(r.seed_buf,
+                                                       r.sample0_buf),
+                                 bounce)
+        kernel = lambda: r.shade(state, hit, None, bounce)
+        got, want = kernel(), plain()
+        ms, library_ms = cuda_ms(kernel, 10), cuda_ms(plain, 10)
+        hv = hit.valid & state.alive
+        n = int(hv.shape[0])
+        rows = int(torch.unique(hit.slot[hv]).numel())
+        n_bytes = n * (SHADE_IN_BYTES + SHADE_OUT_BYTES) + rows * \
+            SHADE_ROW_BYTES
+        masks = [(got[0].alive, want[0].alive),
+                 (got[0].allow_emission, want[0].allow_emission),
+                 (got[0].rays, want[0].rays)]
+        floats = [(got[0].org, want[0].org), (got[0].dirn, want[0].dirn),
+                  (got[0].radiance, want[0].radiance),
+                  (got[0].throughput, want[0].throughput)]
+        if want[1] is not None:
+            w = want[1][4][:, None]
+            masks.append((got[1][4], want[1][4]))
+            floats += [(got[1][0], want[1][0]), (got[1][1], want[1][1]),
+                       (got[1][2][:, None], want[1][2][:, None]),
+                       (torch.where(w, got[1][3], 0.0),
+                        torch.where(w, want[1][3], 0.0))]
+        bad = sum(int((a != b).sum()) for a, b in masks)
+        held = torch.ones(n, dtype=torch.bool, device=device)
+        max_err = 0.0
+        for a, b in floats:
+            d = (a - b).abs()
+            held &= (d <= SHADE_ABS + SHADE_REL * b.abs()).all(dim=1)
+            max_err = max(max_err, float(d.max()))
+        share = float(held.float().mean())
+        rec = dict(bound(n_bytes, 0), wave=bounce, rays=n,
+                   hits=int(hv.sum()), rows=rows, bytes=n_bytes, ms=ms,
+                   library_ms=library_ms, mask_mismatches=bad,
+                   share_within=share, max_abs_err=max_err)
+        waves.append(rec)
+        log(f"[shade] {name} wave {bounce}: {n} rays, {rec['hits']} hits on "
+            f"{rows} records; {n_bytes} B; S1 {ms:.4f} ms, the PyTorch "
+            f"shade {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}); masks and "
+            f"counters differ in {bad}, floats held on {share:.6f} of rays "
+            f"(max abs err {max_err:.3g})")
+        if bad or share < 0.999:
+            raise AssertionError(f"S1 {name} wave {bounce} departs from the "
+                                 "PyTorch shade")
+        state, shadow = got
+        if shadow is not None:
+            state = r.occlude(state, shadow, bounce)
+    total = lambda k: sum(w[k] for w in waves)
+    log(f"[shade] {name} batch: S1 {total('ms'):.4f} ms, the PyTorch shade "
+        f"{total('library_ms'):.4f} ms, bound {total('bound_ms'):.4f} ms "
+        f"({total('bound_ms') / total('ms'):.1%})")
+    return dict(name="shade", route="cuda", source="tpurt_torch/csrc/shade.cu",
+                replaces=None, max_abs_err=max(w["max_abs_err"]
+                                               for w in waves),
+                ms=total("ms"), plain_ms=None, library_ms=total("library_ms"),
+                bound_ms=total("bound_ms"), bound_by="bytes",
+                mismatches=total("mask_mismatches"), waves=waves)
+
+
 def golden_configs() -> dict:
     """GOLDENS from tests/golden/configs.py, loaded by path (an installed
     package named ``tests`` may shadow the repository's)."""
@@ -1253,9 +1361,10 @@ def golden_configs() -> dict:
 # and rings or None for the preset's own scene, config overrides, the
 # environment switches set around its renders, the kernels it must launch)
 PATHS = {
-    "bunny": ("bunny", 8, None, {}, {}, ("entries", "tileloop")),
+    "bunny": ("bunny", 8, None, {}, {}, ("entries", "tileloop", "shade")),
     "sponza": ("sponza", 2, None, {}, {}, ("entries", "tileloop_tl_sc")),
-    "cornell": ("cornell", 16, None, {}, {}, ("tileloop_allpairs",)),
+    "cornell": ("cornell", 16, None, {}, {}, ("tileloop_allpairs",
+                                              "shade")),
     "hello_triangle": ("hello_triangle", 1, None, {}, {},
                        ("tileloop_allpairs",)),
     "sponza_small": ("sponza", 2, (8, 3), {}, {},
@@ -1376,20 +1485,22 @@ def staged_renderer():
 
 # the device kernel behind each launch counter (tpurt_torch/csrc/*.cu): K2
 # and K3 are slab_kernel<true> / <false>, K1's modes and K4 are
-# tileloop_kernel, K6 pair_kernel, K5 packet_kernel
+# tileloop_kernel, K6 pair_kernel, K5 packet_kernel, S1 shade_kernel
 DEVICE_KERNELS = ("slab_kernel", "tileloop_kernel", "pair_kernel",
-                  "packet_kernel")
+                  "packet_kernel", "shade_kernel")
 # the wrappers whose ``.launches`` name their kernel (tileloop_cuda's
 # modes are counted by name in ``.variant_launches``)
 WRAPPER_COUNTER = {"entries_cuda": "entries", "exact_mask_cuda": "exact_mask",
-                   "pair_test_cuda": "pair", "packet_cuda": "packet"}
+                   "pair_test_cuda": "pair", "packet_cuda": "packet",
+                   "shade_cuda": "shade"}
 
 
 def kernel_of_counter(key: str) -> str:
     if key.startswith(("tileloop", "tilegrid")):
         return "tileloop_kernel"
     return {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
-            "pair": "pair_kernel", "packet": "packet_kernel"}[key]
+            "pair": "pair_kernel", "packet": "packet_kernel",
+            "shade": "shade_kernel"}[key]
 
 
 def by_device_kernel(counts: dict) -> dict:
@@ -1515,7 +1626,10 @@ def render_path(name: str, device, paths=PATHS):
     if r is not None:
         log(f"[render] {name}: loop {r.mode}, stage graphs {r.graphs}"
             + (f" ({len(r.programs())} a batch)" if r.graphs else "")
-            + (f"; eager: {r.graph_reason}" if r.graph_reason else ""))
+            + (f"; eager: {r.graph_reason}" if r.graph_reason else "")
+            + f"; shade {r.shade_path}"
+            + (f" ({r.shade_reason})" if r.shade_reason else "")
+            + f", {stats['shade_waves_cuda']} waves by the kernel")
         if r.graphs:
             check_graph_nodes(name, r)
     log(f"[render] {name} {config.width}x{config.height} x {stats['spp']} "
@@ -2877,8 +2991,10 @@ def main() -> int:
                 or "Compiling entry" in line):
             log(f"[build] {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions, the shade kernel against
+    # the loop's PyTorch shade
     report = check_kernels(device)
+    report.append(shade_phase(device))
 
     # 4. render: each preset's main path, then the goldens
     launches, images, mrays, rays, base = {}, {}, {}, {}, {}

@@ -507,13 +507,18 @@ def test_tilegrid_cuda_edge_lists_match_plain(cuda_device, mode, any_hit):
 
 
 @pytest.mark.cuda
-def test_cutout_twin_on_cuda(cuda_device):
+def test_cutout_twin_on_cuda(cuda_device, monkeypatch):
     """The cut-out fence over bunny_standin(3) against its geometric twin
     on the card, 160×120 × 2 spp, through bvh_tile (the shade-record
     alpha probe) and bvh_packet (the per-field probe): RMSE ≤ 1e-3, as
-    chip_smoke.cutout_twin_check holds them (it raises on a miss)."""
+    chip_smoke.cutout_twin_check holds them (it raises on a miss). Its
+    graphs keep their ``cudaGraph_t`` (as chip_smoke's ``keep_graphs``
+    makes them), which the check's graph node count reads."""
     import chip_smoke
 
+    made = torch.cuda.CUDAGraph
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        lambda *a, **k: made(*a, keep_graph=True, **k))
     out = chip_smoke.cutout_twin_check(cuda_device, 160, 120, 2,
                                        subdivisions=3)
     assert out["bvh_tile"][2]["tileloop"] > 0

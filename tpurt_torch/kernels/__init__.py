@@ -6,7 +6,11 @@ over (tile, cluster) pairs (``csrc/tileloop.cu``); ``pairwave`` the
 pair-wavefront intersector's pair test (``csrc/pairwave.cu``); ``packet``
 the packet-BVH walk (``csrc/packet.cu``). Each sits behind a wrapper that
 launches the kernel for CUDA tensors and runs the plain version for CPU
-tensors. ``cuda_build`` compiles the sources with nvcc at first use.
+tensors. ``shade`` launches the staged loop's shade of a wave
+(``csrc/shade.cu``), whose plain version is the loop's own PyTorch shade
+(``render.staged``), chosen when the renderer is built
+(``shade.shade_path``). ``cuda_build`` compiles the sources with nvcc at
+first use.
 
 Each CUDA wrapper counts its launches on itself (``.launches``, and K1
 and K4 by mode in ``.variant_launches``). A CUDA graph runs no Python on
@@ -19,28 +23,29 @@ count to the kernel nodes that libcuda holds for it.
 
 
 def _wrappers():
-    from tpurt_torch.kernels import packet, pairwave, tilewave
+    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
 
     return (tilewave.entries_cuda, tilewave.exact_mask_cuda,
             tilewave.tileloop_cuda, tilewave.tilegrid_cuda,
-            pairwave.pair_test_cuda, packet.packet_cuda)
+            pairwave.pair_test_cuda, packet.packet_cuda, shade.shade_cuda)
 
 
 def reset_launch_counts() -> None:
     """Zero every kernel's launch counter."""
-    from tpurt_torch.kernels import packet, pairwave, tilewave
+    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
 
     tilewave.reset_launch_counts()
     pairwave.reset_launch_counts()
     packet.reset_launch_counts()
+    shade.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Launches since the last reset, by kernel (K1 and K4 by mode)."""
-    from tpurt_torch.kernels import packet, pairwave, tilewave
+    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
 
     return {**tilewave.launch_counts(), **pairwave.launch_counts(),
-            **packet.launch_counts()}
+            **packet.launch_counts(), **shade.launch_counts()}
 
 
 def launch_snapshot() -> dict:

@@ -28,7 +28,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu", "packet.cu")
+SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu", "packet.cu",
+           "shade.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
@@ -64,6 +65,12 @@ class KernelLibrary:
         lib.tpurt_packet.argtypes = [p, i, p, p, p, p, ctypes.c_long, i,
                                      p, p, p, p, p, p]
         lib.tpurt_packet.restype = i
+        f = ctypes.c_float
+        lib.tpurt_shade.argtypes = ([p] * 14 + [i, p, i, p, p, i, f, f, f,
+                                                 p, p, p, i, i, i, f, f,
+                                                 ctypes.c_long]
+                                    + [p] * 13)
+        lib.tpurt_shade.restype = i
 
 
 _LOADED: list = []  # the process's library once loaded

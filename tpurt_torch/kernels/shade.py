@@ -1,0 +1,180 @@
+"""The staged loop's shade of one wave as one CUDA kernel (S1,
+``csrc/shade.cu``): resolve, emission, NEE setup, BRDF, bounce sampling
+and the per-pixel hash, one thread a ray.
+
+The reference has no kernel here (it leaves its shading to XLA); the
+plain version is ``StagedRenderer._shade`` (``render/staged.py``), the
+materials and ``core.prng`` code the staged loop runs on the CPU and on
+every path the kernel does not take. ``shade_path`` is the rule, decided
+when a renderer is built, from what the renderer can observe: the kernel
+resolves the world-space shade records of a flat pair-cluster accel
+(``PairAccel.shade_rows``) with the nearest texel, so it takes a CUDA
+device, records without an instance table (not the two-level accel, not
+the packet BVH's per-field resolve), no bilinear textures, and a shading
+mode that shades (not flat). ``shade_tables`` packs the scene's side of
+the kernel's arguments once a renderer; ``shade_cuda`` launches it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from tpurt_torch.core.vecmath import EPS_RAY
+from tpurt_torch.kernels.tilewave import _check, _stream
+
+LIGHT_LANES = 16  # floats a light row: v0, v1, v2, emission, area, pad
+
+
+def shade_path(ds, accel, config, device) -> tuple:
+    """("cuda", "") where the shade kernel shades the staged loop's waves,
+    else ("plain", why)."""
+    if config.shading_mode == "flat":
+        return "plain", "flat shading: the hit's albedo, no shade"
+    if getattr(accel, "shade_rows", None) is None:
+        return "plain", ("no shade records: the packet BVH's hits resolve "
+                         "per field")
+    if getattr(accel, "inst_table", None) is not None:
+        return "plain", ("a two-level accel: object-space records and an "
+                         "instance table")
+    if config.texture_filter == "bilinear" and ds.tex_data.shape[0] > 1:
+        return "plain", "bilinear textures: four texels a hit"
+    if torch.device(device).type != "cuda":
+        return "plain", "the CPU: the shade kernel runs on the card"
+    return "cuda", ""
+
+
+class ShadeTables(NamedTuple):
+    """The scene's side of the kernel's arguments."""
+
+    shade_rows: torch.Tensor  # (S, 32) f32 world-space shade records
+    lights: torch.Tensor  # (L, LIGHT_LANES) f32
+    num_lights: int  # ds.num_lights (the light rows past it are padding)
+    tex_data: Optional[torch.Tensor]  # (P, 3) f32, None: untextured
+    tex_meta: Optional[torch.Tensor]  # (Ntex, 4) f32, None: untextured
+    background: tuple  # (3,) floats
+
+
+def shade_tables(ds, accel) -> ShadeTables:
+    """Pack the light rows (v0, v1, v2, emission, area) and read the
+    scalars the kernel takes by value (one host read, when a renderer is
+    built). A scene whose pool holds only the white fallback texel is
+    untextured, as for ``materials.make_resolver``."""
+    n_l = ds.light_v0.shape[0]
+    lights = torch.zeros((n_l, LIGHT_LANES), dtype=torch.float32,
+                         device=ds.light_v0.device)
+    lights[:, 0:3] = ds.light_v0
+    lights[:, 3:6] = ds.light_v1
+    lights[:, 6:9] = ds.light_v2
+    lights[:, 9:12] = ds.light_emission
+    lights[:, 12] = ds.light_area
+    textured = ds.tex_data.shape[0] > 1
+    return ShadeTables(
+        shade_rows=accel.shade_rows.contiguous(),
+        lights=lights,
+        num_lights=int(ds.num_lights),
+        tex_data=ds.tex_data.contiguous() if textured else None,
+        tex_meta=ds.tex_meta.contiguous() if textured else None,
+        background=tuple(float(c) for c in ds.background.cpu()),
+    )
+
+
+def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
+               max_bounces: int, use_nee: bool, shadow_eps: float, seed,
+               sample0, base=None):
+    """Shade one wave on the current stream. ``state``: the staged loop's
+    WaveState; ``hit``: its closest hits. ``seed`` and ``sample0``: one
+    int64 each on the device (the renderer's input buffers); ``base``:
+    an (N,) int64 stream base (a PixelSampler's) in their place, or None.
+    Returns (the next wave: ``state`` with its fields replaced and the
+    live count added to its counters at 4 + bounce; with ``use_nee`` the
+    shadow tuple (org, dir, tmax, contrib, want), else None)."""
+    from tpurt_torch.kernels import cuda_build
+
+    dev = state.org.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_cuda needs CUDA tensors, got {dev}")
+    n = state.org.shape[0]
+    f32, i64 = torch.float32, torch.int64
+    c = lambda t: t.contiguous()
+    org, dirn, rad, thr = (c(t) for t in (state.org, state.dirn,
+                                          state.radiance, state.throughput))
+    t, u, v = c(hit.t), c(hit.u), c(hit.v)
+    slot = c(hit.slot.to(torch.int32))
+    for name, x in (("org", org), ("dirn", dirn), ("radiance", rad),
+                    ("throughput", thr)):
+        _check(name, x, f32, (n, 3), dev)
+    for name, x in (("t", t), ("u", u), ("v", v)):
+        _check(name, x, f32, (n,), dev)
+    for name, x in (("alive", state.alive), ("allow_emission",
+                                             state.allow_emission),
+                    ("valid", hit.valid)):
+        _check(name, x, torch.bool, (n,), dev)
+    _check("pix", state.pix, i64, (n,), dev)
+    _check("sample", state.sample, i64, (n,), dev)
+    _check("seed", seed, i64, (), dev)
+    _check("sample0", sample0, i64, (), dev)
+    if base is not None:
+        _check("base", base, i64, (n,), dev)
+    n_slots = tables.shade_rows.shape[0]
+    _check("shade_rows", tables.shade_rows, f32, (n_slots, 32), dev)
+    _check("lights", tables.lights, f32,
+           (tables.lights.shape[0], LIGHT_LANES), dev)
+    if tables.num_lights > tables.lights.shape[0]:
+        raise ValueError(f"{tables.num_lights} lights, "
+                         f"{tables.lights.shape[0]} light rows")
+    n_tex = 0
+    if tables.tex_data is not None:
+        n_tex = tables.tex_meta.shape[0]
+        _check("tex_data", tables.tex_data, f32,
+               (tables.tex_data.shape[0], 3), dev)
+        _check("tex_meta", tables.tex_meta, f32, (n_tex, 4), dev)
+    for name, x in (("shade_rows", tables.shade_rows),
+                    ("lights", tables.lights), ("tex_meta", tables.tex_meta)):
+        if x is not None and x.data_ptr() % 16:  # read as float4 rows
+            raise ValueError(f"{name}: not 16-byte aligned")
+    rays = state.rays.clone()
+    _check("rays", rays, torch.float64, (rays.shape[0],), dev)
+    if not 4 + bounce < rays.shape[0]:
+        raise ValueError(f"no counter slot for bounce {bounce}")
+
+    empty3 = lambda: torch.empty((n, 3), dtype=f32, device=dev)
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)
+    out = (empty3(), empty3(), empty3(), empty3(), flag(), flag())
+    shadow = ((empty3(), empty3(), torch.empty(n, dtype=f32, device=dev),
+               empty3(), flag()) if use_nee else None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    lib = cuda_build.load().lib
+    err = lib.tpurt_shade(
+        *(x.data_ptr() for x in (org, dirn, rad, thr, state.alive,
+                                 state.allow_emission, state.pix,
+                                 state.sample, t, u, v, slot, hit.valid,
+                                 tables.shade_rows)),
+        n_slots, tables.lights.data_ptr(), tables.num_lights,
+        ptr(tables.tex_data), ptr(tables.tex_meta), n_tex,
+        *tables.background, seed.data_ptr(), sample0.data_ptr(), ptr(base),
+        bounce, int(bounce >= max_bounces), int(use_nee), EPS_RAY,
+        1.0 - shadow_eps, n, *(x.data_ptr() for x in out),
+        *(ptr(x) for x in (shadow or (None,) * 5)),
+        rays[4 + bounce:].data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"shade kernel launch failed: cudaError {err}")
+    if n:
+        shade_cuda.launches += 1
+    org, dirn, rad, thr, alive, allow = out
+    return state._replace(org=org, dirn=dirn, radiance=rad, throughput=thr,
+                          alive=alive, allow_emission=allow,
+                          rays=rays), shadow
+
+
+shade_cuda.launches = 0
+
+
+def reset_launch_counts() -> None:
+    shade_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of S1 since the last reset."""
+    return {"shade": shade_cuda.launches}

@@ -59,6 +59,7 @@ import torch
 
 from tpurt_torch.bvh.paircluster import clustering_mode
 from tpurt_torch.core.camera import Camera
+from tpurt_torch.kernels import shade as shade_kernel
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render.intersectors import scene_meta
 from tpurt_torch.render.png import write_png
@@ -214,6 +215,9 @@ def render_scene(
     cut alive rays (stats ``live_overflow``), the frame is re-rendered
     uncapped with a warning (stats ``rerenders`` counts them). Under ``TPURT_AUTOTUNE_WRITE=1`` an uncapped
     render records its live and want counts (``autotune.record``).
+    Stats ``shade_waves_cuda``: the waves the staged loop's shade kernel
+    shaded in the call (0 on the PyTorch shade: ``StagedRenderer``'s
+    ``shade_path``).
 
     ``readback_stats=False`` keeps the ray counters on the device: the
     stats then carry them as ``counts_device`` (the layout of the staged
@@ -264,12 +268,14 @@ def _render_scene(config, scene, camera, state, verbose, readback_stats,
     with profiling.span("scene_context"):
         ctx = _scene_context(config, scene, device, mesh)
     retries = rerenders = 0
+    shaded = shade_kernel.shade_cuda.launches
     while True:
         out_state, stats = _render_scene_once(config, ctx, camera, state,
                                               verbose, device,
                                               readback_stats, mesh)
         stats["budget_retries"] = retries
         stats["rerenders"] = rerenders
+        stats["shade_waves_cuda"] = shade_kernel.shade_cuda.launches - shaded
         if (not config.live_caps
                 and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
             autotune.record(config, stats)
@@ -369,6 +375,10 @@ def _prewarm(renderer, cam, state, verbose: bool) -> None:
         return
     if verbose and renderer.graph_reason:
         print(f"  stage programs run eagerly: {renderer.graph_reason}")
+    if verbose:
+        print(f"  shade path: {renderer.shade_path}"
+              + (f" ({renderer.shade_reason})" if renderer.shade_reason
+                 else ""))
     if os.environ.get("TPURT_PREWARM", "1") == "1":
         n_ready = prewarm(cam, state.seed, state.n_samples)
         if verbose and n_ready:

@@ -67,6 +67,14 @@ again on every replay (``tpurt_torch.kernels.add_launches``);
 ``chip_smoke.py`` holds each graph's count to the kernel nodes that
 libcuda holds for it.
 
+The shade of a wave (``shade``) is one hand-written CUDA kernel
+(``kernels/shade.py``, ``csrc/shade.cu``) where the renderer's accel,
+textures, shading mode and device allow it (``shade_path``), and
+``_shade``'s PyTorch code elsewhere: the CPU, the two-level accel, the
+packet BVH, bilinear textures. The kernel hashes each ray's stream from
+the input buffers and the ray's own sample and pixel, so the loops
+share it and a replay reads the batch's seed.
+
 Two of the reference's probes are carried. ``TPURT_CAPTURE_WAVES=<dir>``
 writes the default loop's real waves as ``.npz`` before they are traced:
 ``bounce{b}_wave.npz`` (``org``, ``dirn``, ``alive``) for b ≥ 1 and
@@ -106,6 +114,7 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
     full_frame_pixels_tiled
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
+from tpurt_torch.kernels import shade as shade_kernel
 from tpurt_torch.kernels.tilewave import BIG, TILE, _octant_sort_keys
 from tpurt_torch.render.integrator import (
     SHADOW_EPS,
@@ -173,7 +182,10 @@ class StagedRenderer:
     "unfused" or "flat"); ``graphs`` whether its stage programs run as
     CUDA graphs (the card, no ``graph_reason`` and the ``graphs``
     keyword not False); ``graph_reason`` why the path's stage programs
-    run eagerly on the card ("" where nothing keeps them eager)."""
+    run eagerly on the card ("" where nothing keeps them eager);
+    ``shade_path`` whether one CUDA kernel shades each wave ("cuda") or
+    the PyTorch code of ``_shade`` does ("plain"), and ``shade_reason``
+    why the latter ("" on the kernel path; ``kernels.shade.shade_path``)."""
 
     def __init__(self, ds, accel, *, meta: SceneMeta, config: RenderConfig,
                  device, mesh=None, graphs: bool = True):
@@ -291,6 +303,12 @@ class StagedRenderer:
             self.occluders = [occluder(n, cap) for cap in shadow_caps]
         self.resolver = materials.make_resolver(
             ds, accel, texture_filter=config.texture_filter)
+        # the shade of a wave: the CUDA kernel (kernels/shade.py) or the
+        # PyTorch path (``_shade``), and why the latter
+        self.shade_path, self.shade_reason = shade_kernel.shade_path(
+            ds, accel, config, device)
+        self.shade_tables = (shade_kernel.shade_tables(ds, accel)
+                             if self.shade_path == "cuda" else None)
 
         # why the stage programs run eagerly on the card, decided here:
         # the wave probe, where the reference's prewarm makes none ready,
@@ -395,8 +413,24 @@ class StagedRenderer:
 
     def shade(self, state: WaveState, hit, sampler, bounce: int):
         """Miss/emission events, NEE shadow-ray setup, bounce sampling.
-        Returns (next wave, shadow tuple or None)."""
+        Returns (next wave, shadow tuple or None). ``sampler``: a
+        PixelSampler, or None for the batch's own streams (the input
+        buffers' seed and first sample, each ray's sample and pixel).
+        On the ``shade_path`` "cuda" one kernel shades the wave and
+        hashes the streams itself."""
         with profiling.step("shade"):
+            if self.shade_path == "cuda":
+                c = self.config
+                return shade_kernel.shade_cuda(
+                    self.shade_tables, state, hit, bounce=bounce,
+                    max_bounces=c.max_bounces, use_nee=c.use_nee,
+                    shadow_eps=SHADOW_EPS, seed=self.seed_buf,
+                    sample0=self.sample0_buf,
+                    base=None if sampler is None else sampler.base)
+            if sampler is None:
+                sampler = PixelSampler.make(
+                    self.seed_buf, self.sample0_buf + state.sample,
+                    state.pix)
             return self._shade(state, hit, sampler, bounce)
 
     def _shade(self, state: WaveState, hit, sampler, bounce: int):
@@ -546,10 +580,7 @@ class StagedRenderer:
         its own (sample, pixel) stream; then, but after the last bounce,
         the next wave sorted and cut at its cap: (wave, the cut tail's
         (radiance, pix, sample) or None)."""
-        sampler = PixelSampler.make(self.seed_buf,
-                                    self.sample0_buf + state.sample,
-                                    state.pix)
-        state = self.shade_occlude(state, hit, sampler, bounce)
+        state = self.shade_occlude(state, hit, None, bounce)
         if bounce == self.config.max_bounces:
             return state, None
         state = self.sort_wave(state)
@@ -572,17 +603,22 @@ class StagedRenderer:
         uncapped intersectors)."""
         mb = self.config.max_bounces
 
+        def batch_sampler():
+            # the PyTorch shade's streams, made once a batch; the sorted
+            # loop's rays carry theirs, and the kernel hashes its own
+            if self.sorted or self.shade_path == "cuda":
+                return None
+            return self.sampler(self.seed_buf, self.sample0_buf)
+
         def raygen(c):
             state = self.raygen(self.camera(), self.seed_buf,
                                 self.sample0_buf)
-            return dict(state=state, sampler=self.sampler(
-                self.seed_buf, self.sample0_buf))
+            return dict(state=state, sampler=batch_sampler())
 
         def first(c):
             hit, state = self.raygen_trace0()
-            sampler = (None if self.sorted  # each ray carries its stream
-                       else self.sampler(self.seed_buf, self.sample0_buf))
-            return dict(hit=hit, state=state, sampler=sampler, tails=())
+            return dict(hit=hit, state=state, sampler=batch_sampler(),
+                        tails=())
 
         def trace(c, b):
             if self.capture and b > 0:

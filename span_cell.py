@@ -27,7 +27,11 @@ as perfbench's own metrics are:
   * ``traversal_by_step``: device s of perfbench's traversal kernels by
     the step that holds them (``entries`` and ``walk`` alone, when the
     split is right);
-  * ``accel_build_s``: the ``accel.build`` spans of set-up.
+  * ``accel_build_s``: the ``accel.build`` spans of set-up;
+  * ``accel``: the program's record of that build (its phases' seconds
+    and its triangle, cluster, supercluster and byte counts) and
+    ``wave_modes``: the run's waves by tile mode (``sc_rows``,
+    ``cluster_rows``, ...), both kept with the recorder off too.
 
 Needs a CUDA device, as perfbench does; run it from the root of a
 checkout.
@@ -140,6 +144,14 @@ def main(argv) -> int:
            "accel_build_s": [(s.end_ns - s.start_ns) * 1e-9
                              for s in rec["spans"]
                              if s.name == "accel.build"]}
+    from tpurt_torch import render
+    from tpurt_torch.kernels import tilewave
+
+    for key, fn in (("accel", getattr(render, "accel_build_record", None)),
+                    ("wave_modes", getattr(tilewave, "wave_mode_counts",
+                                           None))):
+        if fn is not None:
+            out[key] = fn()
     if "attr" in got and "ctx" in got:
         out.update(split(P, got))
     print("SPANS " + json.dumps(out), flush=True)

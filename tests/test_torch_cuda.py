@@ -556,3 +556,25 @@ def test_alternate_paths_render_on_cuda_match_cpu(cuda_device, over,
     assert np.isfinite(a).all()
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
     assert not stats["pair_overflow"] and not stats["live_overflow"]
+
+
+@pytest.mark.cuda
+def test_wave_modes_counted_on_graph_replays(cuda_device, monkeypatch):
+    """A stage graph runs no Python on replay: it adds the waves its
+    capture counted, by tile mode, as it adds its launches. Three
+    batches replayed count three times the waves of one eager batch on
+    the CPU (supercluster entry rows under TPURT_SUPERCLUSTER=1)."""
+    monkeypatch.setenv("TPURT_SUPERCLUSTER", "1")
+    cfg = get_config("bunny", width=160, height=120, spp=1,
+                     spp_per_batch=1, max_bounces=2)
+    scene = bunny_standin(subdivisions=3)
+    tw.reset_wave_mode_counts()
+    render_scene(cfg, device="cpu", scene=scene)
+    one = tw.wave_mode_counts()
+    assert set(one) == {"sc_rows"} and one["sc_rows"] >= 3
+    render_scene(cfg, device=cuda_device, scene=scene)  # captures
+    tw.reset_wave_mode_counts()
+    cfg3 = get_config("bunny", width=160, height=120, spp=3,
+                      spp_per_batch=1, max_bounces=2)
+    render_scene(cfg3, device=cuda_device, scene=scene)
+    assert tw.wave_mode_counts() == {"sc_rows": 3 * one["sc_rows"]}

@@ -74,7 +74,11 @@ def test_span_names_and_nesting(recorder):
 
     paths = collections.Counter(path(s) for s in spans)
     first = ["render", "render/caps", "render/scene_context",
-             "render/scene_context/accel.build", "render/renderer.build",
+             "render/scene_context/accel.build",
+             "render/scene_context/accel.build/accel.order",
+             "render/scene_context/accel.build/accel.pack",
+             "render/scene_context/accel.build/accel.shade_rows",
+             "render/renderer.build",
              "render/prewarm", "render/batch", "render/batch/set_inputs",
              "render/batch/frame", "render/batch/accumulate",
              "render/readback", "deliver.resolve", "deliver.tonemap",
@@ -103,7 +107,12 @@ def test_span_names_and_nesting(recorder):
         while top.parent >= 0:
             top = spans[top.parent]
         assert top.start_ns <= s.start_ns <= s.end_ns <= top.end_ns
-    assert rec["counts"] == {}  # no graph captured on the CPU
+    # no graph captured on the CPU (no graphs.pool_bytes): the counts are
+    # the accel build's, once, and the waves by tile mode, six a batch
+    assert rec["counts"] == {"accel.triangles": 1286, "accel.clusters": 14,
+                             "accel.superclusters": 2,
+                             "accel.bytes": rd.accel_build_record()["bytes"],
+                             "waves.cluster_rows": 4 * 6}
 
 
 def test_live_overflow_rerender_is_counted(recorder):

@@ -19,16 +19,27 @@ Host numpy, byte-identical to the reference's build:
 The two-level build (``PairAccelTL``) keeps one object-space cluster
 table per mesh and one world box, row base and world→object transform
 per instance-cluster, for scenes that reuse meshes.
+
+The kd-SAH cluster orders (``hier``, ``kdsah``) come from the port's
+host library (``csrc/cluster_order.cpp`` through ``utils.native``),
+which runs the reference's recursion in its own arithmetic on several
+threads: about a second for a million triangles, where the numpy
+recursion (kept as ``kd_cluster_order_py`` and ``hier_cluster_order_py``,
+the twins, taken under ``TPURT_NO_NATIVE=1``) takes about a minute. Both
+give the same bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 
 from tpurt_torch.bvh.cluster import LANES_PER_TRI, TPR, _host_tris, _morton
+from tpurt_torch.utils import profiling
 
 # 8 rows × 12 tris per cluster.
 TRIS_PER_CLUSTER = 96
@@ -50,17 +61,38 @@ def _supercluster_groups(lo: np.ndarray, hi: np.ndarray,
     Returns (sc_lo, sc_hi, sc_meta) where sc_meta packs
     ``first_child_cluster | n_children << 16``."""
     n_c = lo.shape[0]
-    sc_lo, sc_hi, sc_meta = [], [], []
-    for b in range(0, n_c, SC_SIZE):
-        e = min(b + SC_SIZE, n_c)
-        sc_lo.append(lo[b:e].min(0))
-        sc_hi.append(hi[b:e].max(0))
-        sc_meta.append((base0 + b) | ((e - b) << 16))
+    if n_c == 0:
+        return (np.zeros(0, np.float32), np.zeros(0, np.float32),
+                np.zeros(0, np.int32))
+    first = np.arange(0, n_c, SC_SIZE)
+    count = np.minimum(first + SC_SIZE, n_c) - first
     return (
-        np.asarray(sc_lo, np.float32),
-        np.asarray(sc_hi, np.float32),
-        np.asarray(sc_meta, np.int32),
+        np.minimum.reduceat(lo, first, axis=0).astype(np.float32),
+        np.maximum.reduceat(hi, first, axis=0).astype(np.float32),
+        ((base0 + first) | (count << 16)).astype(np.int32),
     )
+
+
+# host seconds of the last build's phases (``last_build_phases``)
+_PHASES: dict = {}
+
+
+def last_build_phases() -> dict:
+    """Host seconds of the last pair-cluster build's phases, kept whether
+    or not the recorder is on: ``order`` (the world triangles' Morton sort
+    and the cluster order), ``pack`` (the triangle rows, their row and
+    cluster boxes and the superclusters) and ``shade_rows`` (the shading
+    records). While recording each phase is also a span,
+    ``accel.<phase>``."""
+    return dict(_PHASES)
+
+
+@contextlib.contextmanager
+def _phase(name: str):
+    t = time.perf_counter()
+    with profiling.span("accel." + name):
+        yield
+    _PHASES[name] = _PHASES.get(name, 0.0) + time.perf_counter() - t
 
 
 SHADE_LANES = 32  # record stride (one (n_slots, 32) row per slot)
@@ -149,6 +181,22 @@ def flatten_world_tris(ds, meta, scene=None):
 def kd_cluster_order(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
                      size: int = TRIS_PER_CLUSTER,
                      sah: bool = True, n_cand: int = 5) -> np.ndarray:
+    """Permutation grouping triangles into kd-tight uniform clusters:
+    the kd-SAH order from the host library (``utils.native.cluster_order``)
+    where it loads, else (and for ``sah=False``) the numpy recursion
+    ``kd_cluster_order_py``, its byte-equal twin."""
+    if sah and n_cand == 5:
+        from tpurt_torch.utils import native
+
+        order = native.cluster_order(v0, v1, v2, size)
+        if order is not None:
+            return order
+    return kd_cluster_order_py(v0, v1, v2, size, sah, n_cand)
+
+
+def kd_cluster_order_py(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                        size: int = TRIS_PER_CLUSTER,
+                        sah: bool = True, n_cand: int = 5) -> np.ndarray:
     """Permutation grouping triangles into kd-tight uniform clusters.
 
     Recursive centroid partition whose split counts are multiples of
@@ -239,7 +287,7 @@ def kd_cluster_order(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         if sah and g.shape[0] > 12:
             # within-cluster kd-sah into 12-tri rows: the kernel's per-row
             # sub-AABBs come from chopping this order every 12
-            order.append(g[kd_cluster_order(
+            order.append(g[kd_cluster_order_py(
                 v0[g], v1[g], v2[g], size=12, sah=True)])
             continue
         m = _morton(centro[g].astype(np.float32),
@@ -256,14 +304,26 @@ def hier_cluster_order(v0, v1, v2, size: int = TRIS_PER_CLUSTER,
     SC_SIZE consecutive clusters of each supercluster share a tight parent
     box. Every non-last parent block is exactly ``parent`` tris and the
     single sub-size remainder lands last, so the final cluster is still
-    the only padded one."""
-    outer = kd_cluster_order(v0, v1, v2, size=parent, sah=True)
+    the only padded one. From the host library where it loads, else
+    ``hier_cluster_order_py``."""
+    from tpurt_torch.utils import native
+
+    order = native.cluster_order(v0, v1, v2, size, parent)
+    if order is not None:
+        return order
+    return hier_cluster_order_py(v0, v1, v2, size, parent)
+
+
+def hier_cluster_order_py(v0, v1, v2, size: int = TRIS_PER_CLUSTER,
+                          parent: int = SC_SIZE * TRIS_PER_CLUSTER):
+    """``hier_cluster_order``'s numpy twin: the reference's recursion."""
+    outer = kd_cluster_order_py(v0, v1, v2, size=parent, sah=True)
     order = []
     n = v0.shape[0]
     for b in range(0, n, parent):
         blk = outer[b:min(b + parent, n)]
-        inner = kd_cluster_order(v0[blk], v1[blk], v2[blk], size=size,
-                                 sah=True)
+        inner = kd_cluster_order_py(v0[blk], v1[blk], v2[blk], size=size,
+                                    sah=True)
         order.append(blk[inner])
     return (np.concatenate(order) if order
             else np.arange(0))
@@ -410,9 +470,11 @@ def build_shade_rows(ds, meta, v0, v1, v2, tri_id, inst_id, n_slots: int,
     xf = lambda n: np.einsum("tij,tj->ti", nm, n).astype(np.float32)
     # v0/v1/v2 are WORLD-space: their cross is already the world normal
     # up to det(A) — flip by its sign to match the normal-matrix convention
-    det_sign = np.sign(np.linalg.det(np.linalg.inv(nm))).astype(
+    # (per instance, then per triangle: each matrix's inverse and
+    # determinant are its own, so this equals the per-triangle form)
+    det_sign = np.sign(np.linalg.det(np.linalg.inv(inst_nrm))).astype(
         np.float32
-    )[:, None]
+    )[inst_id][:, None]
     n_geom = (np.cross(v1 - v0, v2 - v0) * det_sign).astype(np.float32)
     n0w = xf(tn0[tri_id])
     n1w = xf(tn1[tri_id])
@@ -442,35 +504,40 @@ def build_shade_rows(ds, meta, v0, v1, v2, tri_id, inst_id, n_slots: int,
 
 def build_pair_accel(ds, meta, scene=None) -> PairAccel:
     """Flatten instances → kd-tight uniform clusters + AABBs."""
-    v0, v1, v2, tri_id, inst_id = flatten_world_tris(ds, meta, scene)
-    ko = cluster_order(v0, v1, v2)
-    v0, v1, v2 = v0[ko], v1[ko], v2[ko]
-    tri_id, inst_id = tri_id[ko], inst_id[ko]
+    _PHASES.clear()
+    with _phase("order"):
+        v0, v1, v2, tri_id, inst_id = flatten_world_tris(ds, meta, scene)
+        ko = cluster_order(v0, v1, v2)
+        v0, v1, v2 = v0[ko], v1[ko], v2[ko]
+        tri_id, inst_id = tri_id[ko], inst_id[ko]
     t = v0.shape[0]
     n_clusters = -(-t // TRIS_PER_CLUSTER)
     n_rows = n_clusters * ROWS_PER_CLUSTER
-    tri_rows, pmin, pmax = pack_tri_rows(v0, v1, v2, n_rows)
+    with _phase("pack"):
+        tri_rows, pmin, pmax = pack_tri_rows(v0, v1, v2, n_rows)
 
-    lo = pmin.reshape(n_clusters, TRIS_PER_CLUSTER, 3).min(1)
-    hi = pmax.reshape(n_clusters, TRIS_PER_CLUSTER, 3).max(1)
+        lo = pmin.reshape(n_clusters, TRIS_PER_CLUSTER, 3).min(1)
+        hi = pmax.reshape(n_clusters, TRIS_PER_CLUSTER, 3).max(1)
 
-    # each ROW's 12-tri sub-AABB in its own spare lanes 120–125 (padding
-    # rows get an empty +BIG/−BIG box that fails every slab test)
-    row_lo = pmin.reshape(n_rows, TPR, 3).min(1)
-    row_hi = pmax.reshape(n_rows, TPR, 3).max(1)
-    tri_rows[:, 120:123] = row_lo.astype(np.float32)
-    tri_rows[:, 123:126] = row_hi.astype(np.float32)
-    _pack_cluster_box_lanes(tri_rows, lo, hi)
+        # each ROW's 12-tri sub-AABB in its own spare lanes 120–125
+        # (padding rows get an empty +BIG/−BIG box that fails every slab
+        # test)
+        row_lo = pmin.reshape(n_rows, TPR, 3).min(1)
+        row_hi = pmax.reshape(n_rows, TPR, 3).max(1)
+        tri_rows[:, 120:123] = row_lo.astype(np.float32)
+        tri_rows[:, 123:126] = row_hi.astype(np.float32)
+        _pack_cluster_box_lanes(tri_rows, lo, hi)
+        lo32 = lo.astype(np.float32)
+        hi32 = hi.astype(np.float32)
+        sc_lo, sc_hi, sc_meta = _supercluster_groups(lo32, hi32)
+        tri_rows = np.concatenate(
+            [tri_rows, np.zeros((SC_PAD_ROWS, 128), np.float32)]
+        )
 
-    shade_rows = build_shade_rows(
-        ds, meta, v0, v1, v2, tri_id, inst_id, n_slots=t, scene=scene
-    )
-    lo32 = lo.astype(np.float32)
-    hi32 = hi.astype(np.float32)
-    sc_lo, sc_hi, sc_meta = _supercluster_groups(lo32, hi32)
-    tri_rows = np.concatenate(
-        [tri_rows, np.zeros((SC_PAD_ROWS, 128), np.float32)]
-    )
+    with _phase("shade_rows"):
+        shade_rows = build_shade_rows(
+            ds, meta, v0, v1, v2, tri_id, inst_id, n_slots=t, scene=scene
+        )
     return PairAccel(
         cluster_lo=lo32,
         cluster_hi=hi32,
@@ -532,6 +599,7 @@ INST_SHIFT = 20  # pair_meta bit split: row_base low 20 bits, instance above
 
 def build_pair_accel_two_level(ds, meta, scene=None) -> PairAccelTL:
     """Object-space per-mesh clusters + per-instance cluster entries."""
+    _PHASES.clear()
     tv0, tv1, tv2, inst_tf = _host_tris(ds, meta, scene)
     (tn0, tn1, tn2, tmat, inst_nrm, inst_over, mk, ma, me, mp0,
      mp1, tuv, mtex, mcut) = _host_shading(ds, meta, scene)
@@ -550,30 +618,32 @@ def build_pair_accel_two_level(ds, meta, scene=None) -> PairAccelTL:
         v0 = tv0[start:start + count]
         v1 = tv1[start:start + count]
         v2 = tv2[start:start + count]
-        centro = (v0 + v1 + v2) / 3.0
-        lo = np.minimum(np.minimum(v0, v1), v2).min(0)
-        hi = np.maximum(np.maximum(v0, v1), v2).max(0)
-        order = np.argsort(_morton(centro, lo, hi), kind="stable")
-        ko = cluster_order(v0[order], v1[order], v2[order])
-        order = order[ko]
+        with _phase("order"):
+            centro = (v0 + v1 + v2) / 3.0
+            lo = np.minimum(np.minimum(v0, v1), v2).min(0)
+            hi = np.maximum(np.maximum(v0, v1), v2).max(0)
+            order = np.argsort(_morton(centro, lo, hi), kind="stable")
+            ko = cluster_order(v0[order], v1[order], v2[order])
+            order = order[ko]
         v0, v1, v2 = v0[order], v1[order], v2[order]
         n_c = -(-count // TRIS_PER_CLUSTER)
         n_rows = n_c * ROWS_PER_CLUSTER
-        rows, pmin, pmax = pack_tri_rows(v0, v1, v2, n_rows)
-        # global mesh-slot ids: local slot + base
-        base_slot = sum(len(s) for s in slot_tri)
-        rec_slots = rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI]
-        valid = rec_slots >= 0
-        rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI] = np.where(
-            valid, rec_slots + base_slot, -1.0
-        )
-        row_lo = pmin.reshape(n_rows, TPR, 3).min(1)
-        row_hi = pmax.reshape(n_rows, TPR, 3).max(1)
-        rows[:, 120:123] = row_lo.astype(np.float32)
-        rows[:, 123:126] = row_hi.astype(np.float32)
-        clo = pmin.reshape(n_c, TRIS_PER_CLUSTER, 3).min(1)
-        chi = pmax.reshape(n_c, TRIS_PER_CLUSTER, 3).max(1)
-        _pack_cluster_box_lanes(rows, clo, chi)
+        with _phase("pack"):
+            rows, pmin, pmax = pack_tri_rows(v0, v1, v2, n_rows)
+            # global mesh-slot ids: local slot + base
+            base_slot = sum(len(s) for s in slot_tri)
+            rec_slots = rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI]
+            valid = rec_slots >= 0
+            rows[:, 9:TPR * LANES_PER_TRI:LANES_PER_TRI] = np.where(
+                valid, rec_slots + base_slot, -1.0
+            )
+            row_lo = pmin.reshape(n_rows, TPR, 3).min(1)
+            row_hi = pmax.reshape(n_rows, TPR, 3).max(1)
+            rows[:, 120:123] = row_lo.astype(np.float32)
+            rows[:, 123:126] = row_hi.astype(np.float32)
+            clo = pmin.reshape(n_c, TRIS_PER_CLUSTER, 3).min(1)
+            chi = pmax.reshape(n_c, TRIS_PER_CLUSTER, 3).max(1)
+            _pack_cluster_box_lanes(rows, clo, chi)
         mesh_rows.append(rows)
         mesh_cluster_base.append(n_rows_total)
         mesh_cluster_boxes.append(
@@ -647,27 +717,28 @@ def build_pair_accel_two_level(ds, meta, scene=None) -> PairAccelTL:
     sc_meta = np.concatenate(sc_meta_l)
 
     # --- object-space shade records per mesh slot
-    gt = np.clip(prim_tri, 0, max(tmat.shape[0] - 1, 0))
-    n_geom_obj = np.cross(
-        tv1[gt] - tv0[gt], tv2[gt] - tv0[gt]
-    ).astype(np.float32)
-    mid = np.clip(tmat[gt], 0, mk.shape[0] - 1)
-    rec = np.zeros((n_slots, SHADE_LANES), np.float32)
-    rec[:, 0:3] = n_geom_obj
-    rec[:, 3:6] = tn0[gt]
-    rec[:, 6:9] = tn1[gt]
-    rec[:, 9:12] = tn2[gt]
-    rec[:, 12] = mk[mid]
-    rec[:, 13:16] = ma[mid]
-    rec[:, 16:19] = me[mid]
-    rec[:, 19] = mp0[mid]
-    rec[:, 20] = mp1[mid]
-    rec[:, 21] = mid.astype(np.float32)
-    rec[:, 22:24] = tuv[0][gt]
-    rec[:, 24:26] = tuv[1][gt]
-    rec[:, 26:28] = tuv[2][gt]
-    rec[:, 28] = mtex[mid]
-    rec[:, 29] = mcut[mid]
+    with _phase("shade_rows"):
+        gt = np.clip(prim_tri, 0, max(tmat.shape[0] - 1, 0))
+        n_geom_obj = np.cross(
+            tv1[gt] - tv0[gt], tv2[gt] - tv0[gt]
+        ).astype(np.float32)
+        mid = np.clip(tmat[gt], 0, mk.shape[0] - 1)
+        rec = np.zeros((n_slots, SHADE_LANES), np.float32)
+        rec[:, 0:3] = n_geom_obj
+        rec[:, 3:6] = tn0[gt]
+        rec[:, 6:9] = tn1[gt]
+        rec[:, 9:12] = tn2[gt]
+        rec[:, 12] = mk[mid]
+        rec[:, 13:16] = ma[mid]
+        rec[:, 16:19] = me[mid]
+        rec[:, 19] = mp0[mid]
+        rec[:, 20] = mp1[mid]
+        rec[:, 21] = mid.astype(np.float32)
+        rec[:, 22:24] = tuv[0][gt]
+        rec[:, 24:26] = tuv[1][gt]
+        rec[:, 26:28] = tuv[2][gt]
+        rec[:, 28] = mtex[mid]
+        rec[:, 29] = mcut[mid]
 
     # --- per-instance normal matrix + material override table
     n_inst = len(meta.inst_mesh)

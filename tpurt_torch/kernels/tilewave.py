@@ -1111,6 +1111,39 @@ def tilegrid(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
               pair_meta=pair_meta, inv_xform=inv_xform, all_pairs=all_pairs)
 
 
+# waves traced since the last reset, by tile mode: "sc_rows" (entry rows
+# over the superclusters), "cluster_rows", "pair_segments", "all_pairs"
+# and "grid" (K4). A stage graph takes back what its capture counted and
+# adds it on every replay, as it does its launches; while the recorder is
+# on each wave also counts as "waves.<mode>".
+_WAVES: dict = {}
+
+
+def wave_mode_counts() -> dict:
+    """Waves traced since the last reset, by tile mode."""
+    return dict(_WAVES)
+
+
+def reset_wave_mode_counts() -> None:
+    _WAVES.clear()
+
+
+def add_waves(delta: dict) -> None:
+    """Add waves by tile mode (a replay's, or one wave's)."""
+    for mode, n in delta.items():
+        _WAVES[mode] = _WAVES.get(mode, 0) + n
+        profiling.count("waves." + mode, n)
+
+
+def take_waves_since(before: dict) -> dict:
+    """The waves counted since ``before`` (a ``wave_mode_counts()``),
+    taken back off the counters."""
+    delta = {m: n - before.get(m, 0) for m, n in _WAVES.items()
+             if n != before.get(m, 0)}
+    add_waves({m: -n for m, n in delta.items()})
+    return delta
+
+
 def reset_launch_counts() -> None:
     entries_cuda.launches = 0
     exact_mask_cuda.launches = 0
@@ -1527,6 +1560,7 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         tmv = _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag)
         live_over = torch.zeros((), dtype=torch.float32, device=dev)
         if all_pairs:
+            add_waves({"all_pairs" if use_loop else "grid": 1})
             if use_loop:
                 out, n_pairs = _trace_all_pairs(org, dirn, tmv, tri_rows,
                                                 n_clusters, any_hit=any_hit,
@@ -1572,6 +1606,8 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
                 if one_launch:
                     chunk_tiles = kt
         exact = exact_env == "all" or (exact_env == "1" and sort != "none")
+        add_waves({("grid" if not use_loop else "sc_rows" if sc_active
+                    else "cluster_rows" if rows else "pair_segments"): 1})
         if not use_loop:
             out, n_pairs, overflow = _trace_grid(
                 org, dirn, tmv, lo, hi, tri_rows, chunk_tiles,

@@ -41,9 +41,11 @@ camera.
 
 While the recorder is on (``tpurt_torch.utils.profiling.record``) a call
 records its spans: ``render`` (the call), ``caps``, ``scene_context``
-(``accel.build`` inside on a miss), ``renderer.build``, ``prewarm``, a
-``batch`` a batch (``accumulate`` inside, and the staged loop's own
-spans) and ``readback``.
+(``accel.build`` inside on a miss, and inside that a pair-cluster
+build's ``accel.order``, ``accel.pack`` and ``accel.shade_rows``; the
+build's counts are ``accel_build_record``), ``renderer.build``,
+``prewarm``, a ``batch`` a batch (``accumulate`` inside, and the staged
+loop's own spans) and ``readback``.
 """
 
 from __future__ import annotations
@@ -80,6 +82,8 @@ RENDERER_SWITCHES = ("TPURT_PAIR_LOOP", "TPURT_ENTRY_ROWS",
 # and how many contexts it has built
 _SCENE_CACHE: dict = {}
 _CACHE_BUILDS = [0]
+# the last accel build (``accel_build_record``)
+_ACCEL_RECORD: dict = {}
 
 
 class BudgetOverflowError(RuntimeError):
@@ -149,6 +153,45 @@ def build_accel(config: RenderConfig, ds, meta, scene=None, device="cuda"):
     return build(ds, meta, scene=scene).to(device)
 
 
+def accel_build_record() -> dict:
+    """The last scene context's accel build, kept whether or not the
+    recorder is on: ``kind`` (the accel's type, None for the brute
+    force), ``seconds`` (``build``: the whole build with its upload, and
+    a pair-cluster build's phases ``order``, ``pack`` and ``shade_rows``,
+    ``bvh.paircluster.last_build_phases``), and the counts
+    ``triangles`` (after instancing), ``clusters``, ``superclusters``
+    (0 where the accel has none) and ``bytes`` (its tables). Empty
+    before the first build. While recording, the counts are also the
+    counters ``accel.<count>``."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in _ACCEL_RECORD.items()}
+
+
+def _record_accel_build(accel, meta, seconds: float) -> None:
+    from tpurt_torch.bvh import paircluster
+
+    tables = [] if accel is None else [a for a in accel
+                                       if isinstance(a, torch.Tensor)]
+    pair = isinstance(accel, (paircluster.PairAccel,
+                              paircluster.PairAccelTL))
+    sc = getattr(accel, "sc_meta", None)
+    counts = {
+        "triangles": sum(meta.mesh_tri_ranges[m][1]
+                         for m in meta.inst_mesh),
+        "clusters": int(accel.cluster_lo.shape[0]) if pair else 0,
+        "superclusters": int(sc.shape[0]) if pair and sc is not None else 0,
+        "bytes": sum(t.numel() * t.element_size() for t in tables),
+    }
+    _ACCEL_RECORD.clear()
+    _ACCEL_RECORD.update(
+        kind=None if accel is None else type(accel).__name__,
+        seconds={"build": seconds,
+                 **(paircluster.last_build_phases() if pair else {})},
+        **counts)
+    for name, n in counts.items():
+        profiling.count("accel." + name, n)
+
+
 def scene_context_builds() -> int:
     """How many scene contexts (upload + accel build) this process has
     made; a flythrough adds one for all its frames."""
@@ -184,8 +227,10 @@ def _scene_context(config: RenderConfig, scene, device, mesh=None):
         _SCENE_CACHE.clear()
         meta = scene_meta(scene)
         ds = to_device(scene, device=device)
+        t = time.perf_counter()
         with profiling.span("accel.build"):
             accel = build_accel(config, ds, meta, scene=scene, device=device)
+        _record_accel_build(accel, meta, time.perf_counter() - t)
         ctx = {"scene": scene, "meta": meta, "ds": ds, "accel": accel}
         _SCENE_CACHE[key] = ctx
         if scene_key[0] == "preset":

@@ -115,6 +115,7 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
 from tpurt_torch.kernels import shade as shade_kernel
+from tpurt_torch.kernels import tilewave
 from tpurt_torch.kernels.tilewave import BIG, TILE, _octant_sort_keys
 from tpurt_torch.render.integrator import (
     SHADOW_EPS,
@@ -329,6 +330,7 @@ class StagedRenderer:
         # [(CUDAGraph, launches a replay adds, its op nodes and its steps'
         # node ranges: profiling.NodeMarks.nodes)]
         self._graphs = None
+        self._graph_waves = []  # a graph's waves by tile mode, a replay
         self._static_out = None  # the last graph's outputs
 
     # --- the batch's inputs ------------------------------------------------
@@ -704,12 +706,14 @@ class StagedRenderer:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graphs, warm, static, pool_bytes = [], None, None, 0
+        self._graph_waves = []
         with profiling.span("graphs.capture"), torch.cuda.stream(side):
             for name, fn in self.programs():
                 with self._stage("eager", name, quiet=quiet):
                     warm = fn(warm)
                 graph = torch.cuda.CUDAGraph()
                 before = kernels.launch_snapshot()
+                waves = tilewave.wave_mode_counts()
                 with torch.cuda.graph(graph, pool=pool):
                     stream = torch.cuda.current_stream(dev).cuda_stream
                     reserved = torch.cuda.memory_reserved(dev)
@@ -720,6 +724,7 @@ class StagedRenderer:
                 # a capture launches nothing: its counts go to the replays
                 graphs.append((graph, kernels.take_launches_since(before),
                                marks.nodes()))
+                self._graph_waves.append(tilewave.take_waves_since(waves))
         profiling.count("graphs.pool_bytes", pool_bytes)
         current = torch.cuda.current_stream(dev)
         current.wait_stream(side)
@@ -764,11 +769,12 @@ class StagedRenderer:
             return carry
         if self._graphs is None:
             return self._capture_graphs()
-        for (name, _), (graph, launches, nodes) in zip(programs,
-                                                       self._graphs):
+        for (name, _), (graph, launches, nodes), waves in zip(
+                programs, self._graphs, self._graph_waves):
             with self._stage("replay", name, nodes):
                 graph.replay()
             kernels.add_launches(launches)
+            tilewave.add_waves(waves)
         # the next replay overwrites the static outputs
         with profiling.span("clone"):
             return tuple(t.clone() for t in self._static_out)

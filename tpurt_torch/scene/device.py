@@ -216,6 +216,7 @@ def to_device(scene: Scene, pad_to: int = 8, *,
 
     # Emissive triangles, expanded per instance into world space (NEE table).
     lv0, lv1, lv2, lem = [], [], [], []
+    mat_emissive = np.array([m.is_emissive() for m in scene.materials], bool)
     for inst in scene.instances:
         mesh = scene.meshes[inst.mesh_id]
         mids = (
@@ -223,9 +224,8 @@ def to_device(scene: Scene, pad_to: int = 8, *,
             if inst.material_override >= 0
             else mesh.material_ids
         )
-        emissive = np.array(
-            [scene.materials[mid].is_emissive() for mid in mids], bool
-        ) if len(scene.materials) else np.zeros(mesh.num_triangles, bool)
+        emissive = (mat_emissive[mids] if len(scene.materials)
+                    else np.zeros(mesh.num_triangles, bool))
         if not emissive.any():
             continue
         idx = mesh.indices[emissive]

@@ -6,11 +6,16 @@ parser and the packet BVH's median-split tree build. Each has a Python
 twin in this package that gives the same result; the callers take the
 twin when the library is not there.
 
-The library is compiled from that source with g++ at first use, and again
+A second host library, the port's own (``tpurt_torch/csrc/cluster_order.cpp``),
+holds the pair-cluster accel's kd-SAH triangle order
+(``cluster_order``); its twin is the numpy recursion in
+``bvh.paircluster``.
+
+Each library is compiled from its source with g++ at first use, and again
 when the source is newer, into ``tpurt_torch/build/`` (never at import).
 ``TPURT_NO_NATIVE=1`` (read on every call) forces the Python twins, and
 so does a failed build; ``build_error()`` then returns the compiler's
-message.
+message (``order_build_error()`` for the order library).
 """
 
 from __future__ import annotations
@@ -33,27 +38,34 @@ _tried = False
 _error = ""
 
 
-def _build() -> bool:
-    """Compile the library; the output lands under a temporary name and
-    is renamed into place, so a concurrent process never loads half a
+def _compile(src: str, so: str, flags) -> str:
+    """Compile ``src`` into the shared library ``so``: "" on success, else
+    the compiler's message. The output lands under a temporary name and is
+    renamed into place, so a concurrent process never loads half a
     file."""
-    global _error
-    os.makedirs(os.path.dirname(SO), exist_ok=True)
-    tmp = f"{SO}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", SRC, "-o", tmp,
-             "-lz"],
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp,
+             *flags],
             check=True, capture_output=True, text=True, timeout=120)
-        os.replace(tmp, SO)
-        return True
+        os.replace(tmp, so)
+        return ""
     except subprocess.CalledProcessError as e:
-        _error = (e.stderr or e.stdout or str(e)).strip()
+        error = (e.stderr or e.stdout or str(e)).strip()
     except (OSError, subprocess.SubprocessError) as e:
-        _error = repr(e)
+        error = repr(e)
     if os.path.exists(tmp):
         os.remove(tmp)
-    return False
+    return error or "build failed"
+
+
+def _build() -> bool:
+    """Compile the shared host library."""
+    global _error
+    _error = _compile(SRC, SO, ["-lz"])
+    return not _error
 
 
 def build_error() -> str:
@@ -184,3 +196,76 @@ def bvh_build(bmin: np.ndarray, bmax: np.ndarray):
     if m <= 0:
         return None
     return o_bmin[:m], o_bmax[:m], o_first[:m], o_count[:m], o_skip[:m]
+
+
+# --- the port's own host library: the kd-SAH cluster order ----------------
+
+ORDER_SRC = os.path.join(_PKG, "csrc", "cluster_order.cpp")
+ORDER_SO = os.path.join(_PKG, "build", "libtpurt_order.so")
+_order = {"lib": None, "tried": False, "error": ""}
+
+
+def order_build_error() -> str:
+    """Why the order library did not load ("" when it did or was not
+    tried)."""
+    return _order["error"]
+
+
+def get_order_lib() -> Optional[ctypes.CDLL]:
+    """The order library, built if needed; None under TPURT_NO_NATIVE=1
+    or when it cannot be built or loaded."""
+    if os.environ.get("TPURT_NO_NATIVE") == "1":
+        return None
+    with _lock:
+        if _order["tried"]:
+            return _order["lib"]
+        _order["tried"] = True
+        stale = (not os.path.exists(ORDER_SO) or os.path.getmtime(ORDER_SRC)
+                 > os.path.getmtime(ORDER_SO))
+        if stale:
+            # no fused multiply-adds: the SAH costs round as numpy's do
+            _order["error"] = _compile(ORDER_SRC, ORDER_SO,
+                                       ["-ffp-contract=off", "-pthread"])
+            if _order["error"]:
+                return None
+        try:
+            lib = ctypes.CDLL(ORDER_SO)
+        except OSError as e:
+            _order["error"] = repr(e)
+            return None
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.tpurt_cluster_order.argtypes = [
+            ctypes.c_int64, f32p, f32p, f32p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64)]
+        lib.tpurt_cluster_order.restype = ctypes.c_int
+        _order["lib"] = lib
+        return lib
+
+
+def host_threads() -> int:
+    """Cores this process may run on (at most 16)."""
+    try:
+        return max(1, min(16, len(os.sched_getaffinity(0))))
+    except (AttributeError, OSError):
+        return max(1, min(16, os.cpu_count() or 1))
+
+
+def cluster_order(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                  size: int, parent: int = 0) -> Optional[np.ndarray]:
+    """The kd-SAH cluster order of float32 (n, 3) corners, natively:
+    ``bvh.paircluster``'s ``kd_cluster_order(size, sah=True)`` where
+    ``parent`` is 0, ``hier_cluster_order(size, parent)`` otherwise, byte-
+    equal to that twin. None where the library is not there, the corners
+    are not float32 or there are none (the caller takes the twin)."""
+    n = v0.shape[0]
+    if n == 0 or any(v.dtype != np.float32 for v in (v0, v1, v2)):
+        return None
+    lib = get_order_lib()
+    if lib is None:
+        return None
+    v0, v1, v2 = (np.ascontiguousarray(v) for v in (v0, v1, v2))
+    out = np.empty(n, np.int64)
+    rc = lib.tpurt_cluster_order(
+        n, _fp(v0), _fp(v1), _fp(v2), int(size), int(parent),
+        host_threads(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return out if rc == 0 else None

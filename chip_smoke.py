@@ -52,7 +52,14 @@ Phases, in order; any failure exits nonzero and prints no result:
                 computed from the wave's shapes and data: for K1 and K4
                 the box and row tests the walk cannot avoid
                 (tilewave.tileloop_work_plain, on at most 512 tiles of a
-                wave, scaled);
+                wave, scaled); K2 and K3 on live rays alone: a slab
+                test per (live ray, box), each wave's ray counter
+                (tilewave.slab_ray_counts) held to its slots and live
+                rays. Then K2 at the live shares of every bounce and
+                shadow wave of one bunny batch (cluster boxes) and one
+                buddha.accum batch (superboxes, perfbench's frozen
+                scene), uncapped: ms beside slots, live rays and the
+                bound on the live rays ([k2 live] lines);
   4. render   — each preset at its own size, one batch, through
                 render_scene(device="cuda"): bunny (8 spp), sponza (2
                 spp), cornell (16 spp) and hello_triangle (1 spp), the
@@ -293,32 +300,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def batch_waves(name: str, device, spp: int, sort: bool):
-    """The primary, first bounce and first shadow waves of one batch of
-    the preset, prepared as the tile intersector prepares them (scene-exit
-    cap; octant sort for the entry-row modes, none for all-pairs). Each
-    wave is (org, dirn, inv_d, tmax). Also the waves as the renderer hands
-    them to an intersector, (org, dirn, tmax)."""
-    import torch
-
-    from tpurt_torch.kernels import tilewave as tw
+def _renderer(config, scene, device):
+    """The accel and staged renderer of ``config`` on the host ``scene``."""
     from tpurt_torch.render import build_accel
     from tpurt_torch.render.intersectors import scene_meta
     from tpurt_torch.render.staged import StagedRenderer
     from tpurt_torch.scene.device import to_device
-    from tpurt_torch.scene.loader import load_scene
-    from tpurt_torch.utils.config import get_config
 
-    config = get_config(name, spp=spp, spp_per_batch=spp)
-    scene = load_scene(config.scene)
     meta = scene_meta(scene)
     ds = to_device(scene, device=device)
     accel = build_accel(config, ds, meta, scene=scene, device=device)
-    r = StagedRenderer(ds, accel, meta=meta, config=config, device=device)
-    sampler = r.sampler(config.seed, 0)
-    state = r.raygen(scene.camera, config.seed, 0)
-    hit, state0 = r.trace(state, 0)
-    state1, shadow = r.shade(state0, hit, sampler, 0)
+    return accel, StagedRenderer(ds, accel, meta=meta, config=config,
+                                 device=device)
+
+
+def _preparer(accel, sort: bool):
+    """A wave (org, dirn, tmax) as the tile intersector prepares it:
+    scene-exit cap, octant sort (dead rays last) for the entry-row modes;
+    returned as (org, dirn, inv_d, tmax)."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
 
     lo, hi = accel.cluster_lo, accel.cluster_hi
     lo_all, hi_all = lo.amin(dim=0), hi.amax(dim=0)
@@ -335,12 +337,84 @@ def batch_waves(name: str, device, spp: int, sort: bool):
         org, dirn, tmv = (x.contiguous() for x in (org, dirn, tmv))
         return org, dirn, tw._safe_inv(dirn), tmv
 
-    alive = lambda s: torch.where(s.alive, math.inf, -1.0)
-    raw = dict(primary=(state.org, state.dirn, alive(state)),
-               bounce=(state1.org, state1.dirn, alive(state1)),
+    return prepare
+
+
+def alive_tmax(state):
+    """A wave state's tmax as the renderer traces it: inf alive, -1 dead."""
+    import torch
+
+    return torch.where(state.alive, math.inf, -1.0)
+
+
+def batch_waves(name: str, device, spp: int, sort: bool):
+    """The primary, first bounce and first shadow waves of one batch of
+    the preset, prepared as the tile intersector prepares them (scene-exit
+    cap; octant sort for the entry-row modes, none for all-pairs). Each
+    wave is (org, dirn, inv_d, tmax). Also the waves as the renderer hands
+    them to an intersector, (org, dirn, tmax)."""
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    config = get_config(name, spp=spp, spp_per_batch=spp)
+    scene = load_scene(config.scene)
+    accel, r = _renderer(config, scene, device)
+    sampler = r.sampler(config.seed, 0)
+    state = r.raygen(scene.camera, config.seed, 0)
+    hit, state0 = r.trace(state, 0)
+    state1, shadow = r.shade(state0, hit, sampler, 0)
+
+    prepare = _preparer(accel, sort)
+    raw = dict(primary=(state.org, state.dirn, alive_tmax(state)),
+               bounce=(state1.org, state1.dirn, alive_tmax(state1)),
                shadow=(shadow[0], shadow[1], shadow[2]))
     waves = {k: prepare(*v) for k, v in raw.items()}
     return accel, waves, raw
+
+
+def slab_waves(config, scene, device, primary: bool = False):
+    """Every wave of one batch that K2 builds entries for, uncapped and
+    prepared as the tile intersector prepares it: the bounce waves
+    ``bounce-1`` up to ``bounce-<max_bounces>`` and a shadow wave a hit
+    depth, ``shadow-0`` on; with ``primary``, the camera wave (every ray
+    live; its entries come from the interval mask) first. Returns the
+    boxes K2 tests there, as the intersector picks them (the superboxes
+    from SC_AUTO_MIN_CLUSTERS clusters on, else the clusters'), and
+    [(label, wave)]."""
+    from tpurt_torch.kernels import tilewave as tw
+
+    accel, r = _renderer(config, scene, device)
+    prepare = _preparer(accel, sort=True)
+    sampler = r.sampler(config.seed, 0)
+    state = r.raygen(scene.camera, config.seed, 0)
+    waves = []
+    if primary:
+        waves.append(("primary", prepare(state.org, state.dirn,
+                                         alive_tmax(state))))
+    for b in range(config.max_bounces + 1):
+        if b:
+            waves.append((f"bounce-{b}", prepare(
+                state.org, state.dirn, alive_tmax(state))))
+        hit, state = r.trace(state, b)
+        state, shadow = r.shade(state, hit, sampler, b)
+        if shadow is not None:
+            waves.append((f"shadow-{b}", prepare(*shadow[:3])))
+    if accel.cluster_lo.shape[0] >= tw.SC_AUTO_MIN_CLUSTERS:
+        return (accel.sc_lo, accel.sc_hi), waves
+    return (accel.cluster_lo, accel.cluster_hi), waves
+
+
+def buddha_scene():
+    """buddha.accum's configuration (its traffic's batch) and host scene,
+    from the benchmark's frozen files."""
+    from perfbench import program, scenes, traffic
+
+    with open(os.path.join(ROOT, "perfbench", "configs", "buddha.json")) as f:
+        cfg = json.load(f)
+    mix = traffic.load(ROOT, "accum")
+    scene = program.port_scene(scenes.build(cfg["scene"]["builder"],
+                                            cfg["scene"]["args"]))
+    return program.render_config({**cfg["render"], **mix["render"]}), scene
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -353,24 +427,32 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def slab_bound(wave, lo, out_bytes_per_tile: float) -> dict:
-    """K2/K3: every ray read once (org, inv_d, tmax), the boxes once, the
-    output once; a slab test per (ray, box)."""
+    """K2/K3: every ray's tmax read once and each live ray's origin and
+    inverse direction once, the boxes once, the output once; a slab test
+    per (live ray, box), as the kernels skip the dead rays. Also the
+    wave's ray slots and live rays."""
     n, n_c = wave[0].shape[0], lo.shape[0]
     n_tiles = n // 1024
-    return bound(n * 28 + n_c * 24 + n_tiles * out_bytes_per_tile,
-                 n * n_c * SLAB_OPS)
+    live = int((wave[3] >= 0).sum())
+    return dict(bound(n * 4 + live * 24 + n_c * 24
+                      + n_tiles * out_bytes_per_tile,
+                      live * n_c * SLAB_OPS), slots=n, live=live)
 
 
 def check_k2(label, wave, lo, hi):
-    """K2 against entries_plain on one wave: bit-equal. Returns the
-    sorted entry rows, the live counts and the timing record."""
+    """K2 against entries_plain on one wave: bit-equal, and its ray
+    counter moved by the wave's slots and live rays. Returns the sorted
+    entry rows, the live counts and the timing record."""
     import torch
 
     from tpurt_torch.kernels import tilewave as tw
 
     org, _, inv_d, tmv = wave
     scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    before = tw.slab_ray_counts()["entries"]
     k2 = tw.entries_cuda(org, inv_d, tmv, lo, hi, scale)
+    counted = [a - b for a, b in zip(tw.slab_ray_counts()["entries"],
+                                     before)]
     p2, plain_ms = timed_once(lambda: tw.entries_plain(org, inv_d, tmv, lo,
                                                        hi, scale))
     torch.cuda.synchronize()
@@ -381,12 +463,51 @@ def check_k2(label, wave, lo, hi):
                **slab_bound(wave, lo, k2.shape[1] * 4))
     log(f"[kernels] K2 {label}: slab {tuple(k2.shape)} over {lo.shape[0]} "
         f"boxes, {int(counts.sum())} entries, {bad} words differ from the "
-        f"plain version; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+        f"plain version; {rec['live']} live rays of {rec['slots']} slots "
+        f"({rec['live'] / rec['slots']:.1%}), counted {counted}; "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound on the live rays "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+        f"{rec['bound_ms'] / ms:.0%})")
     if bad:
         raise AssertionError(f"K2 {label} is not bit-equal to entries_plain")
+    if counted != [rec["slots"], rec["live"]]:
+        raise AssertionError(f"K2 {label}: the ray counter moved by "
+                             f"{counted}, not the wave's slots and live rays")
     entry = torch.sort(k2, dim=1).values
     return entry, counts, scale, rec
+
+
+def k2_live_phase(device) -> dict:
+    """K2 at the live shares the main path gives it: every bounce and
+    shadow wave of one bunny batch (800×600 × 8 spp, 854 cluster boxes)
+    and of one buddha.accum batch (1,417 superboxes), uncapped, through
+    ``check_k2``; each wave's ms beside its slots, live rays and the bound
+    counted on the live rays, and the batch's sums."""
+    import torch
+
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    bunny = get_config("bunny", spp=8, spp_per_batch=8)
+    cases = (("bunny", lambda: (bunny, load_scene(bunny.scene))),
+             ("buddha", buddha_scene))
+    out = {}
+    for name, make in cases:
+        (lo, hi), waves = slab_waves(*make(), device)
+        recs = {label: check_k2(f"{name} {label}", wave, lo, hi)[3]
+                for label, wave in waves}
+        total = {k: sum(r[k] for r in recs.values())
+                 for k in ("ms", "slots", "live", "bound_ms")}
+        log(f"[k2 live] {name} batch over {lo.shape[0]} boxes: "
+            f"{total['ms']:.3f} ms, {total['live']} live rays of "
+            f"{total['slots']} slots "
+            f"({total['live'] / total['slots']:.1%}); bound on the live "
+            f"rays {total['bound_ms']:.3f} ms "
+            f"({total['bound_ms'] / total['ms']:.0%})")
+        out[name] = dict(total, boxes=lo.shape[0], waves=recs)
+        del waves, lo, hi
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_k3(label, wave, lo, hi):
@@ -2995,6 +3116,7 @@ def main() -> int:
     # the loop's PyTorch shade
     report = check_kernels(device)
     report.append(shade_phase(device))
+    k2_live = k2_live_phase(device)
 
     # 4. render: each preset's main path, then the goldens
     launches, images, mrays, rays, base = {}, {}, {}, {}, {}
@@ -3039,7 +3161,7 @@ def main() -> int:
     graphs_phase(device, smi)
 
     # 10. report
-    print(json.dumps({"kernels": report}))
+    print(json.dumps({"kernels": report, "k2_live": k2_live}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

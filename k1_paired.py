@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The tile loop (K1), the grid over pairs (K4) and the packet walk (K5)
-of this checkout against those of another checkout, on the waves
-chip_smoke.py holds them to, on one CUDA GPU.
+"""The tile loop (K1), the grid over pairs (K4), the packet walk (K5) and
+the entry build and exact mask (K2, K3) of this checkout against those of
+another checkout, on the waves chip_smoke.py holds them to, on one CUDA
+GPU.
 
-    python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell]
+    python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell,buddha]
         [--cases K4,K5] [--variant TAG:kName=V,kName=V ...] [--reps 10]
         [--out FILE]
 
@@ -21,7 +22,11 @@ entry rows and as pair segments, on chip_smoke's edge-case lists, on
 sponza's supercluster and per-cluster entries, on cornell's all-pairs
 rows; K4 on the bunny's and cornell's grid lists and the bunny's K4
 edge-case lists; K5 on the bunny's primary, bounce and shadow waves
-through its packet BVH — whose name holds one of ``--cases`` (every case
+through its packet BVH; K2 on the primary (every ray live), bounce and
+shadow waves of an uncapped bunny batch (cluster boxes) and buddha.accum
+batch (``buddha``: perfbench's frozen scene, superboxes), as
+chip_smoke.slab_waves gives them, and K3 on their ``bounce-1`` and
+``shadow-0`` waves — whose name holds one of ``--cases`` (every case
 by default), it checks every output of every other build bit-equal to
 this checkout's (K5: its group counters too; K4 any-hit: the occlusion
 flags), then times each build by CUDA events (mean of ``--reps``
@@ -86,7 +91,8 @@ def build(csrc: str, tag: str, consts: dict | None = None):
 
 # The C entry point that each case's kernel launches through.
 ENTRY = {"K1": "tpurt_tileloop", "K4": "tpurt_tilegrid",
-         "K5": "tpurt_packet"}
+         "K5": "tpurt_packet", "K2": "tpurt_entries",
+         "K3": "tpurt_exact_mask"}
 
 
 def interfaces(csrc: str) -> dict:
@@ -103,6 +109,31 @@ def interfaces(csrc: str) -> dict:
     return out
 
 
+def slab_cases(scene: str, device):
+    """K2 on every wave of one uncapped batch of ``scene`` (bunny or
+    buddha) over the boxes its entry rows use, K3 on two of them."""
+    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    if scene == "buddha":
+        config, host = chip_smoke.buddha_scene()
+    else:
+        config = get_config(scene, spp=8, spp_per_batch=8)
+        host = load_scene(config.scene)
+    (lo, hi), waves = chip_smoke.slab_waves(config, host, device,
+                                            primary=True)
+    scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    for label, (org, _, inv_d, tmv) in waves:
+        yield (f"K2 {scene} {label}",
+               lambda o=org, iv=inv_d, t=tmv:
+               (tw.entries_cuda(o, iv, t, lo, hi, scale),))
+        if label in ("bounce-1", "shadow-0"):
+            yield (f"K3 {scene} {label}",
+                   lambda o=org, iv=inv_d, t=tmv:
+                   tw.exact_mask_cuda(o, iv, t, lo, hi))
+
+
 def scene_cases(scene: str, device):
     """(case name, closure launching the kernel on the case's inputs[,
     flags]) for every case of ``scene``, built from the same waves as
@@ -117,6 +148,10 @@ def scene_cases(scene: str, device):
     from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.utils.config import get_config
 
+    if scene in ("bunny", "buddha"):
+        yield from slab_cases(scene, device)
+        if scene == "buddha":
+            return
     if scene == "cornell":
         accel, waves, _ = chip_smoke.batch_waves("cornell", device, 16,
                                                  sort=False)

@@ -31,7 +31,11 @@ as perfbench's own metrics are:
   * ``accel``: the program's record of that build (its phases' seconds
     and its triangle, cluster, supercluster and byte counts) and
     ``wave_modes``: the run's waves by tile mode (``sc_rows``,
-    ``cluster_rows``, ...), both kept with the recorder off too.
+    ``cluster_rows``, ...), both kept with the recorder off too;
+  * ``slab_rays``: the ray slots K2 (``entries``) and K3
+    (``exact_mask``) were launched over, the live rays among them and
+    the live share, counted on the card since the harness last reset the
+    launch counts (under ``--trace 1``, the traced stretch).
 
 Needs a CUDA device, as perfbench does; run it from the root of a
 checkout.
@@ -152,6 +156,10 @@ def main(argv) -> int:
                                            None))):
         if fn is not None:
             out[key] = fn()
+    slab = getattr(tilewave, "slab_ray_counts", None)
+    if slab is not None:  # [slots, live rays, live share] by kernel
+        out["slab_rays"] = {k: [n, live, live / n if n else None]
+                            for k, (n, live) in slab().items()}
     if "attr" in got and "ctx" in got:
         out.update(split(P, got))
     print("SPANS " + json.dumps(out), flush=True)

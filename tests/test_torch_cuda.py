@@ -276,6 +276,98 @@ def test_exact_mask_cuda_matches_plain(wave):
     assert bool(mask.any())
 
 
+def _dead_ray_wave(kind, n_c, device):
+    """Four tiles of seeded rays through ``n_c`` boxes with dead rays (tmax
+    < 0) laid out as ``kind``: "sorted" (octant-sorted, so the dead rays
+    form a tail from inside tile 1 on), "interleaved" (about half dead at
+    random, a few tmax of -0.0, 0.0 and NaN among them), "tiles" (tiles 0
+    and 3 dead, tile 2 with a live chunk, a third of a chunk dead, a dead
+    chunk and a live one) or "all" (every ray dead)."""
+    rng = np.random.default_rng(11)
+    n = 4 * tw.TILE
+    org = rng.normal(size=(n, 3)) * 5.0
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rng.uniform(5.0, 40.0, n)
+    lo = rng.uniform(-8, 6, size=(n_c, 3))
+    hi = lo + rng.uniform(0.1, 2.0, size=(n_c, 3))
+    if kind == "sorted":
+        tm[rng.permutation(n)[:int(n * 0.6)]] = -1.0
+    elif kind == "interleaved":
+        tm[rng.random(n) < 0.5] = -1.0
+        tm[rng.permutation(n)[:9]] = [-0.0, -0.0, 0.0, 0.0, np.nan, np.nan,
+                                      np.nan, -0.0, 0.0]
+    elif kind == "tiles":
+        tile = tm.reshape(4, 4, 256)  # (tile, chunk, ray)
+        tile[0] = tile[3] = -1.0
+        tile[2, 1, ::3] = -1.0
+        tile[2, 2] = -1.0
+    else:
+        tm[:] = -1.0
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    org, dirn, tmax, lo, hi = t(org), t(d), t(tm), t(lo), t(hi)
+    if kind == "sorted":
+        keys = tw._octant_sort_keys(org, dirn, tmax, lo.amin(0), hi.amax(0))
+        perm = torch.sort(keys, stable=True).indices
+        org, dirn, tmax = (x[perm].contiguous() for x in (org, dirn, tmax))
+    return org, tw._safe_inv(dirn), tmax, lo, hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_c", [256, 107], ids=["lanes256", "padded107"])
+@pytest.mark.parametrize("kind", ["sorted", "interleaved", "tiles", "all"])
+def test_slab_kernels_test_live_rays_only(cuda_device, kind, n_c):
+    """K2 and K3 compact each chunk to its live rays: their outputs stay
+    equal to the plain versions, which test every ray, on waves with a
+    dead tail, dead rays interleaved, dead tiles and chunks, and no live
+    ray at all, over a multiple of 128 boxes and a padded count."""
+    org, inv_d, tmax, lo, hi = _dead_ray_wave(kind, n_c, cuda_device)
+    scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    live = tmax >= 0
+    if kind == "sorted":  # the dead tail starts inside tile 1
+        assert bool(live[:tw.TILE].all()) and not bool(live[-tw.TILE:].any())
+    got = tw.entries_cuda(org, inv_d, tmax, lo, hi, scale)
+    assert torch.equal(got, tw.entries_plain(org, inv_d, tmax, lo, hi,
+                                             scale))
+    mask, tn = tw.exact_mask_cuda(org, inv_d, tmax, lo, hi)
+    p_mask, p_tn = tw.exact_mask_plain(org, inv_d, tmax, lo, hi)
+    assert torch.equal(mask, p_mask) and torch.equal(tn, p_tn)
+    # a tile with no live ray has no entry; every other wave has some
+    dead_tile = ~live.reshape(4, tw.TILE).any(dim=1)
+    assert not bool(mask[dead_tile].any())
+    assert bool((got[dead_tile] == tw.INT32_MAX).all())
+    assert bool(mask.any()) == (kind != "all")
+
+
+@pytest.mark.cuda
+def test_slab_ray_counts_count_live_rays_and_graph_replays(cuda_device):
+    """K2 and K3 count each tile's 1024 slots and its live rays on the
+    card: one launch counts the wave once, and a captured graph adds its
+    wave on every replay (the capture itself counts nothing)."""
+    org, inv_d, tmax, lo, hi = _dead_ray_wave("interleaved", 200,
+                                              cuda_device)
+    scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    one = (4 * tw.TILE, int((tmax >= 0).sum()))
+    tw.reset_launch_counts()
+    tw.entries_cuda(org, inv_d, tmax, lo, hi, scale)
+    assert tw.slab_ray_counts() == {"entries": one, "exact_mask": (0, 0)}
+    tw.exact_mask_cuda(org, inv_d, tmax, lo, hi)
+    assert tw.slab_ray_counts() == {"entries": one, "exact_mask": one}
+    tw.reset_launch_counts()
+    assert tw.slab_ray_counts() == {"entries": (0, 0),
+                                    "exact_mask": (0, 0)}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tw.entries_cuda(org, inv_d, tmax, lo, hi, scale)
+    assert tw.slab_ray_counts()["entries"] == (0, 0)
+    graph.replay()
+    assert tw.slab_ray_counts()["entries"] == one
+    graph.replay()
+    assert tw.slab_ray_counts()["entries"] == (2 * one[0], 2 * one[1])
+    assert torch.equal(out, tw.entries_plain(org, inv_d, tmax, lo, hi,
+                                             scale))
+
+
 @pytest.mark.cuda
 def test_pair_test_cuda_matches_plain(cuda_device):
     """K6 against its plain version on a pair list of the bunny stand-in:

@@ -28,6 +28,29 @@
 // registers; nothing is reduced across threads, so both kernels are
 // bit-equal to their plain versions.
 //
+// Only live rays are tested. A dead ray (tmax < 0, which the intersector
+// gives the rays that left the batch and the shadow rays with nothing to
+// test) can never hit, yet an uncapped or over-capped wave is full of
+// them: its octant sort puts them last (a dead tail), the sorted-wave loop
+// interleaves them. So each 256-ray chunk reads its tmax first (two rays
+// a thread), compacts its live rays to the front of shared memory in ray
+// order (a warp ballot, popc prefixes, the four warps' counts through
+// shared memory) and reads origin and inverse direction for those alone;
+// the loop runs over the chunk's live rays, padded with at most three
+// dead ones to whole quads that it reads as 16-byte words (a loop to the
+// bare count compiled to a second, remainder loop and cost an all-live
+// wave 2.6% on an H100), and a chunk with none skips both. What bounds a block is thus
+// its tile's live rays x 28 operations a lane, plus 4 KB of tmax a tile;
+// a tile of dead rays reads its tmax, writes its empty words and exits.
+// The output is unchanged bit for bit: a dead ray never passes the hit
+// test, hit-any is an OR, and the live rays reach min-tn in the order
+// they did.
+//
+// Lane block 0 of every tile adds the tile's 1024 ray slots and its live
+// rays to a device counter per kernel (g_slab_rays), read and cleared by
+// tpurt_slab_rays / tpurt_slab_rays_reset; a captured graph adds on each
+// replay.
+//
 // Numerics match the reference op for op: t0 = (lo - o) * iv, tn starts at
 // 0 and tf at max(tm, 0), tn = max(tn, min(t0, t1)), tf = min(tf,
 // max(t0, t1)), hit = tn <= tf && tm >= 0. Built with -fmad=false (no
@@ -43,7 +66,39 @@ namespace {
 constexpr int kTile = 1024;   // rays per tile
 constexpr int kLanes = 128;   // clusters per block (one per thread)
 constexpr int kChunk = 256;   // rays staged through shared memory at once
+constexpr int kWarps = kLanes / 32;
+constexpr int kPasses = kChunk / kLanes;  // rays of a chunk a thread reads
 constexpr float kBig = 3.4e38f;
+
+// {ray slots, live rays} of every tile launched on this device: K2 [0],
+// K3 [1].
+__device__ unsigned long long g_slab_rays[2][2];
+
+// One ray against the lane's box (lo xyz, hi xyz) in the reference's op
+// order; a hit sets hit-any and lowers min-tn.
+__device__ __forceinline__ void slab_test(const float (&box)[6], float ox,
+                                          float oy, float oz, float ivx,
+                                          float ivy, float ivz, float tm,
+                                          bool& any_hit, float& tn_min) {
+  float tn = 0.f;
+  float tf = fmaxf(tm, 0.f);
+  float t0 = (box[0] - ox) * ivx;
+  float t1 = (box[3] - ox) * ivx;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (box[1] - oy) * ivy;
+  t1 = (box[4] - oy) * ivy;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (box[2] - oz) * ivz;
+  t1 = (box[5] - oz) * ivz;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  if (tn <= tf && tm >= 0.f) {
+    any_hit = true;
+    tn_min = fminf(tn_min, tn);
+  }
+}
 
 // kPack: K2 (packed entry word into out_word, (n_tiles, cp)); else K3
 // (mask into out_mask and tn_min into out_tn, both (n_tiles, n_clusters)).
@@ -54,60 +109,97 @@ slab_kernel(const float* __restrict__ org, const float* __restrict__ inv_d,
             const float* __restrict__ hi, int n_clusters, int cp,
             float scale, int32_t* __restrict__ out_word,
             uint8_t* __restrict__ out_mask, float* __restrict__ out_tn) {
-  __shared__ float s_ray[7][kChunk];  // ox oy oz ivx ivy ivz tm
+  // ox oy oz ivx ivy ivz tm of the chunk's live rays, in ray order
+  __shared__ __align__(16) float s_ray[7][kChunk];
+  // live rays a (pass, warp) of a chunk, two chunks apart: a thread that
+  // finds its chunk empty goes on to count the next one while others
+  // still read this one's
+  __shared__ int s_live[2][kPasses * kWarps];
 
   const long tile = blockIdx.x;
   const int lane = blockIdx.y * kLanes + threadIdx.x;
   const bool real = lane < n_clusters;
-  float lox = 0.f, loy = 0.f, loz = 0.f, hix = 0.f, hiy = 0.f, hiz = 0.f;
+  const int warp = threadIdx.x / 32;
+  const unsigned below = (1u << (threadIdx.x % 32)) - 1u;
+  float box[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // lo xyz, hi xyz
   if (real) {
-    lox = lo[3 * lane + 0];
-    loy = lo[3 * lane + 1];
-    loz = lo[3 * lane + 2];
-    hix = hi[3 * lane + 0];
-    hiy = hi[3 * lane + 1];
-    hiz = hi[3 * lane + 2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      box[a] = lo[3 * lane + a];
+      box[3 + a] = hi[3 * lane + a];
+    }
   }
 
   bool any_hit = false;
   float tn_min = kBig;
-  for (int base = 0; base < kTile; base += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int k = threadIdx.x; k < kChunk; k += kLanes) {
-      const long r = tile * kTile + base + k;
+  int tile_live = 0;
+  for (int c = 0; c < kTile / kChunk; ++c) {
+    const long r0 = tile * kTile + c * kChunk;
+    int* live_of = s_live[c & 1];
+    float tms[kPasses];  // ray p * kLanes + threadIdx.x of the chunk
+    unsigned ballot[kPasses];
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      tms[p] = tmax[r0 + p * kLanes + threadIdx.x];
+      ballot[p] = __ballot_sync(0xffffffffu, tms[p] >= 0.f);
+      if (threadIdx.x % 32 == 0)
+        live_of[p * kWarps + warp] = __popc(ballot[p]);
+    }
+    __syncthreads();  // the counts are in; the previous chunk is consumed
+    int n_live = 0, at[kPasses];
+#pragma unroll
+    for (int i = 0; i < kPasses * kWarps; ++i) {
+      if (i % kWarps == warp) at[i / kWarps] = n_live;
+      n_live += live_of[i];
+    }
+    tile_live += n_live;
+    if (n_live == 0) continue;  // the same for every thread
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      if (!(tms[p] >= 0.f)) continue;
+      const int k = at[p] + __popc(ballot[p] & below);
+      const long r = r0 + p * kLanes + threadIdx.x;
       s_ray[0][k] = org[3 * r + 0];
       s_ray[1][k] = org[3 * r + 1];
       s_ray[2][k] = org[3 * r + 2];
       s_ray[3][k] = inv_d[3 * r + 0];
       s_ray[4][k] = inv_d[3 * r + 1];
       s_ray[5][k] = inv_d[3 * r + 2];
-      s_ray[6][k] = tmax[r];
+      s_ray[6][k] = tms[p];
+    }
+    // dead rays (tm -1, never a hit) pad the live ones to whole quads,
+    // which the loop reads as 16-byte words
+    const int n_quad = (n_live + 3) / 4;
+    if (threadIdx.x < 4 * n_quad - n_live) {
+      const int k = n_live + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) s_ray[i][k] = 0.f;
+      s_ray[6][k] = -1.f;
     }
     __syncthreads();
     if (!real) continue;
-    for (int k = 0; k < kChunk; ++k) {
-      const float tm = s_ray[6][k];
-      float tn = 0.f;
-      float tf = fmaxf(tm, 0.f);
-      float t0 = (lox - s_ray[0][k]) * s_ray[3][k];
-      float t1 = (hix - s_ray[0][k]) * s_ray[3][k];
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-      t0 = (loy - s_ray[1][k]) * s_ray[4][k];
-      t1 = (hiy - s_ray[1][k]) * s_ray[4][k];
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-      t0 = (loz - s_ray[2][k]) * s_ray[5][k];
-      t1 = (hiz - s_ray[2][k]) * s_ray[5][k];
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-      if (tn <= tf && tm >= 0.f) {
-        any_hit = true;
-        tn_min = fminf(tn_min, tn);
-      }
+    for (int q = 0; q < 4 * n_quad; q += 4) {
+      float4 v[7];
+#pragma unroll
+      for (int i = 0; i < 7; ++i)
+        v[i] = *reinterpret_cast<const float4*>(&s_ray[i][q]);
+      slab_test(box, v[0].x, v[1].x, v[2].x, v[3].x, v[4].x, v[5].x, v[6].x,
+                any_hit, tn_min);
+      slab_test(box, v[0].y, v[1].y, v[2].y, v[3].y, v[4].y, v[5].y, v[6].y,
+                any_hit, tn_min);
+      slab_test(box, v[0].z, v[1].z, v[2].z, v[3].z, v[4].z, v[5].z, v[6].z,
+                any_hit, tn_min);
+      slab_test(box, v[0].w, v[1].w, v[2].w, v[3].w, v[4].w, v[5].w, v[6].w,
+                any_hit, tn_min);
     }
   }
 
+  if (blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(&g_slab_rays[kPack ? 0 : 1][0],
+              static_cast<unsigned long long>(kTile));
+    atomicAdd(&g_slab_rays[kPack ? 0 : 1][1],
+              static_cast<unsigned long long>(tile_live));
+  }
   if (kPack) {
     int32_t word = INT32_MAX;
     if (real && any_hit) {
@@ -153,4 +245,26 @@ extern "C" int tpurt_exact_mask(const float* org, const float* inv_d,
   slab_kernel<false><<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       org, inv_d, tmax, lo, hi, n_clusters, cp, 1.f, nullptr, mask, tn);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ray counters of the current device: out (4 u64) = {K2 slots, K2 live,
+// K3 slots, K3 live}, read after the work queued on ``stream`` (a sync).
+extern "C" int tpurt_slab_rays(unsigned long long* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      out, g_slab_rays, sizeof(g_slab_rays), 0, cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return static_cast<int>(err);
+}
+
+// Zero the current device's ray counters after the work queued on
+// ``stream``, and wait for it.
+extern "C" int tpurt_slab_rays_reset(void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* counts = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&counts, g_slab_rays);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counts, 0, sizeof(g_slab_rays), s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return static_cast<int>(err);
 }

@@ -299,6 +299,48 @@ def _slab_args(name, org, inv_d, tmax, lo, hi):
     return dev, n_tiles, n_c, _padded_lanes(n_c)
 
 
+# the CUDA devices K2 or K3 has launched on: their ray counters
+# (``slab_ray_counts``) keep counting on graph replays, so none is dropped
+_SLAB_DEVICES: set = set()
+
+
+def _slab_rays(reset: bool):
+    """Read or clear the kernels' device-side ray counters, after the
+    work queued on each device's current stream (both synchronize);
+    returns the sums read, (K2 slots, K2 live, K3 slots, K3 live)."""
+    import ctypes
+
+    from tpurt_torch.kernels import cuda_build
+
+    total = [0, 0, 0, 0]
+    if not _SLAB_DEVICES:
+        return total
+    lib = cuda_build.load().lib
+    for index in sorted(_SLAB_DEVICES):
+        dev = torch.device("cuda", index)
+        with torch.cuda.device(dev):
+            if reset:
+                err = lib.tpurt_slab_rays_reset(_stream(dev))
+            else:
+                got = (ctypes.c_ulonglong * 4)()
+                err = lib.tpurt_slab_rays(got, _stream(dev))
+                total = [a + b for a, b in zip(total, got)]
+        if err:
+            raise RuntimeError(f"slab ray counters: cudaError {err}")
+    return total
+
+
+def slab_ray_counts() -> dict:
+    """The ray slots K2 and K3 were launched over and the live rays
+    (tmax >= 0) among them, since the last reset: ``{"entries": (slots,
+    live), "exact_mask": (slots, live)}``. The kernels count on the card,
+    once a tile, graph replays included; reading them synchronizes. The
+    plain versions count nothing."""
+    k2_slots, k2_live, k3_slots, k3_live = _slab_rays(reset=False)
+    return {"entries": (k2_slots, k2_live),
+            "exact_mask": (k3_slots, k3_live)}
+
+
 def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
     """Launch the CUDA entry-build kernel (csrc/entries.cu) on the
     current stream. Returns the unsorted (T, cp) int32 slab."""
@@ -316,6 +358,7 @@ def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
         raise RuntimeError(f"entries kernel launch failed: cudaError {err}")
     if n_tiles:  # no tiles: the launcher launches nothing
         entries_cuda.launches += 1
+        _SLAB_DEVICES.add(dev.index)
     return out
 
 
@@ -349,6 +392,7 @@ def exact_mask_cuda(org, inv_d, tmax, lo, hi):
         raise RuntimeError(f"exact_mask kernel launch failed: cudaError {err}")
     if n_tiles:  # no tiles: the launcher launches nothing
         exact_mask_cuda.launches += 1
+        _SLAB_DEVICES.add(dev.index)
     return mask, tn
 
 
@@ -1145,6 +1189,8 @@ def take_waves_since(before: dict) -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counters, and K2's and K3's ray counters."""
+    _slab_rays(reset=True)
     entries_cuda.launches = 0
     exact_mask_cuda.launches = 0
     tileloop_cuda.launches = 0

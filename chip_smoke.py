@@ -97,7 +97,7 @@ Phases, in order; any failure exits nonzero and prints no result:
                 Each path's Mrays/s is logged beside the card's
                 nvidia-smi name and power limit. The staged paths run
                 the default loop, the stage programs as CUDA graphs
-                where the path allows (phase 9): the warmup's renderer
+                where the path allows (phase 8): the warmup's renderer
                 captures them (``prewarm``) and the timed run replays
                 them, its launches counted a replay; a render that
                 builds its renderer (bunny_budget's retries) also counts
@@ -189,16 +189,7 @@ Phases, in order; any failure exits nonzero and prints no result:
                 world's kernels. The world's Mrays/s is logged beside the
                 single process's and the nvidia-smi line: ranks sharing
                 one card measure no scaling;
-  8. bench    — ``python -m tpurt_torch.bench`` as a user runs it, from
-                the repository's root, in a session of its own under a
-                wall-clock limit that kills it whole: with its defaults
-                (the bunny, 800×600 × 8 spp in one batch) and as one
-                sponza frame (1920×1080 × 2 spp). Each run's JSON line is
-                logged; it must exit 0 and report ``platform`` "gpu",
-                ``value`` > 0, this card's name and nvidia-smi line, and
-                the ``rays_traced`` that phase 4's bunny and sponza
-                paths counted for the same config;
-  9. graphs   — the reference's stage programs as CUDA graphs
+  8. graphs   — the reference's stage programs as CUDA graphs
                 (``render/staged.py``; every phase above already runs
                 them, the default): bunny, sponza (1920×1080 × 2 spp),
                 cornell, hello_triangle, bunny_sorted, bunny_packet and
@@ -226,7 +217,7 @@ Phases, in order; any failure exits nonzero and prints no result:
                 whole-batch graphs in turns, and the bunny batch's device idle share
                 (``torch.profiler``) eager and as graphs. Phase 4 logs
                 each staged path's loop and, where it runs eagerly, why;
- 10. report   — the kernel JSON line, the nvidia-smi line, and last the
+  9. report   — the kernel JSON line, the nvidia-smi line, and last the
                 {"ok": true, "device": ...} line.
 """
 
@@ -1604,43 +1595,29 @@ def staged_renderer():
     return None
 
 
-# the device kernel behind each launch counter (tpurt_torch/csrc/*.cu): K2
-# and K3 are slab_kernel<true> / <false>, K1's modes and K4 are
-# tileloop_kernel, K6 pair_kernel, K5 packet_kernel, S1 shade_kernel
-DEVICE_KERNELS = ("slab_kernel", "tileloop_kernel", "pair_kernel",
-                  "packet_kernel", "shade_kernel")
-# the wrappers whose ``.launches`` name their kernel (tileloop_cuda's
-# modes are counted by name in ``.variant_launches``)
-WRAPPER_COUNTER = {"entries_cuda": "entries", "exact_mask_cuda": "exact_mask",
-                   "pair_test_cuda": "pair", "packet_cuda": "packet",
-                   "shade_cuda": "shade"}
-
-
-def kernel_of_counter(key: str) -> str:
-    if key.startswith(("tileloop", "tilegrid")):
-        return "tileloop_kernel"
-    return {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
-            "pair": "pair_kernel", "packet": "packet_kernel",
-            "shade": "shade_kernel"}[key]
-
-
 def by_device_kernel(counts: dict) -> dict:
-    """Launch counters (``launch_counts()``'s keys) summed by the device
-    kernel they launch."""
+    """Launch counters (``launch_counts()``'s keys; any other key is
+    left out) summed by the device kernel they launch
+    (``kernels.KERNELS``)."""
+    from tpurt_torch.kernels import KERNELS
+
     out = {}
     for k, n in counts.items():
-        if n:
-            out[kernel_of_counter(k)] = out.get(kernel_of_counter(k), 0) + n
+        if n and k in KERNELS:
+            out[KERNELS[k]] = out.get(KERNELS[k], 0) + n
     return out
 
 
 def kernel_of_symbol(symbol: str):
-    """The DEVICE_KERNELS name of a mangled kernel symbol (slab_kernel split
-    by its template argument), or None for another kernel."""
+    """The ``kernels.KERNELS`` name of a mangled kernel symbol
+    (slab_kernel split by its template argument), or None for another
+    kernel."""
     import re
 
-    m = re.search(r"\d(" + "|".join(DEVICE_KERNELS) + r")(ILb[01]E)?",
-                  symbol)
+    from tpurt_torch.kernels import KERNELS
+
+    names = sorted({k.split("<")[0] for k in KERNELS.values()})
+    m = re.search(r"\d(" + "|".join(names) + r")(ILb[01]E)?", symbol)
     if m is None:
         return None
     if m.group(1) == "slab_kernel":
@@ -1660,7 +1637,7 @@ def keep_graphs() -> None:
 
 
 def graph_kernel_nodes(graph) -> dict:
-    """The kernel nodes of a captured graph, by DEVICE_KERNELS name, read
+    """The kernel nodes of a captured graph, by ``KERNELS`` name, read
     through libcuda (``profiling.graph_nodes``,
     cuGraphKernelNodeGetParams, cuFuncGetName or, for a library kernel,
     cuKernelGetName)."""
@@ -1697,14 +1674,7 @@ def check_graph_nodes(label: str, renderer) -> None:
     libcuda holds for it (captured after ``keep_graphs``)."""
     total = {}
     for k, (graph, tally, _) in enumerate(renderer._graphs):
-        counts = {}
-        for (fn, attr, key), n in tally.items():
-            if attr == "launches" and fn.__name__ == "tileloop_cuda":
-                continue  # its modes are counted by name
-            key = key if attr == "variant_launches" else \
-                WRAPPER_COUNTER[fn.__name__]
-            counts[key] = counts.get(key, 0) + n
-        want, nodes = by_device_kernel(counts), graph_kernel_nodes(graph)
+        want, nodes = by_device_kernel(tally), graph_kernel_nodes(graph)
         if nodes != want:
             raise AssertionError(f"{label}: graph {k} holds the kernel "
                                  f"nodes {nodes}, its capture counted "
@@ -2812,70 +2782,7 @@ def mesh_phase(device, launches: dict, smi: str, sizes=None) -> None:
                                  "the single process's")
 
 
-# the runs of the bench phase: (label, arguments, the phase-4 path of the
-# same config)
-BENCH_RUNS = (
-    ("bunny", (), "bunny"),
-    ("sponza", ("--scene", "sponza", "--width", "1920", "--height", "1080",
-                "--spp", "2", "--spp-per-batch", "2"), "sponza"),
-)
-BENCH_LIMIT_S = 300  # wall clock of one bench run, retries included
-
-
-def bench_phase(rays: dict, smi: str) -> None:
-    """``python -m tpurt_torch.bench`` for each of BENCH_RUNS, from the
-    repository's root in a session of its own (killed whole past
-    BENCH_LIMIT_S); its line must come from this card, with a rate and the
-    ray count of the phase-4 path of the same config (``rays``)."""
-    import signal
-
-    import torch
-
-    for label, args, path in BENCH_RUNS:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "tpurt_torch.bench", *args], cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=BENCH_LIMIT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            out, err = proc.communicate()
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-        log(f"[bench] {label}: exit {proc.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for line in lines:
-            log(f"[bench] {label} {line}")
-        if proc.returncode != 0 or len(lines) != 1:
-            log(f"[bench] {label}: its errors end: "
-                + err[-3000:].replace("\n", " | "))
-            raise AssertionError(f"bench {label}: exit {proc.returncode}, "
-                                 f"{len(lines)} JSON lines")
-        line = json.loads(lines[0])
-        detail = line["detail"]
-        want = dict(platform="gpu", gpu=smi,
-                    device=torch.cuda.get_device_name(0),
-                    rays_traced=rays[path])
-        got = {k: detail.get(k) for k in want}
-        if got != want or not line["value"] > 0:
-            raise AssertionError(f"bench {label}: {got} with value "
-                                 f"{line['value']}, want {want} and a "
-                                 "value above 0")
-        log(f"[bench] {label}: {line['value']:.4f} Mrays/s (runs "
-            f"{detail['mrays_min']:.4f} .. {detail['mrays_max']:.4f}), "
-            f"{detail['elapsed_s'] * 1e3:.3f} ms, {detail['rays_traced']:.0f}"
-            f" rays as phase 4's {path} path; warmup {detail['warmup_s']:.3f}"
-            f" s (build {detail['warmup_build_s']:.3f}, scene "
-            f"{detail['warmup_scene_s']:.3f}, other "
-            f"{detail['warmup_other_s']:.3f}); {smi}")
-
-
-# --- 9. the stage programs as CUDA graphs --------------------------------
+# --- 8. the stage programs as CUDA graphs --------------------------------
 
 # each path of the graphs phase: (preset, spp, config overrides, scene
 # or None for the preset's own): the preset's size, its measured caps
@@ -2960,7 +2867,7 @@ def idle_share(fn) -> tuple:
 
 
 def graphs_phase(device, smi: str) -> None:
-    """Phase 9 of the module docstring on ``device`` (a CPU dry run has
+    """Phase 8 of the module docstring on ``device`` (a CPU dry run has
     no graphs: every loop runs eagerly there)."""
     import torch
 
@@ -3119,10 +3026,10 @@ def main() -> int:
     k2_live = k2_live_phase(device)
 
     # 4. render: each preset's main path, then the goldens
-    launches, images, mrays, rays, base = {}, {}, {}, {}, {}
+    launches, images, mrays, base = {}, {}, {}, {}
     for name in PATHS:
         base[name], images[name], stats = render_path(name, device)
-        mrays[name], rays[name] = stats["mrays_per_s"], stats["rays_traced"]
+        mrays[name] = stats["mrays_per_s"]
         for k, v in base[name].items():
             launches[k] = launches.get(k, 0) + v
     log(f"[render] Mrays/s a path ({smi}): "
@@ -3154,13 +3061,10 @@ def main() -> int:
     for k in report:
         k["launches"] = launches.get(k["name"], 0)
 
-    # 8. the port's bench
-    bench_phase(rays, smi)
-
-    # 9. the stage programs as CUDA graphs
+    # 8. the stage programs as CUDA graphs
     graphs_phase(device, smi)
 
-    # 10. report
+    # 9. report
     print(json.dumps({"kernels": report, "k2_live": k2_live}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

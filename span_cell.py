@@ -148,18 +148,15 @@ def main(argv) -> int:
            "accel_build_s": [(s.end_ns - s.start_ns) * 1e-9
                              for s in rec["spans"]
                              if s.name == "accel.build"]}
-    from tpurt_torch import render
+    from tpurt_torch import kernels, render
     from tpurt_torch.kernels import tilewave
 
-    for key, fn in (("accel", getattr(render, "accel_build_record", None)),
-                    ("wave_modes", getattr(tilewave, "wave_mode_counts",
-                                           None))):
-        if fn is not None:
-            out[key] = fn()
-    slab = getattr(tilewave, "slab_ray_counts", None)
-    if slab is not None:  # [slots, live rays, live share] by kernel
-        out["slab_rays"] = {k: [n, live, live / n if n else None]
-                            for k, (n, live) in slab().items()}
+    out["accel"] = render.accel_build_record()
+    out["wave_modes"] = {k[len("waves."):]: n
+                         for k, n in kernels.counts("waves.").items()}
+    # [slots, live rays, live share] by kernel
+    out["slab_rays"] = {k: [n, live, live / n if n else None]
+                        for k, (n, live) in tilewave.slab_ray_counts().items()}
     if "attr" in got and "ctx" in got:
         out.update(split(P, got))
     print("SPANS " + json.dumps(out), flush=True)

@@ -22,10 +22,10 @@ import pytest
 import torch
 
 from tpurt.bvh import paircluster as ref_pc
+from tpurt_torch import kernels
 from tpurt_torch import render as rd
 from tpurt_torch.bvh import paircluster as port_pc
 from tpurt_torch.bvh.cluster import _host_tris, _morton
-from tpurt_torch.kernels import tilewave
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render.intersectors import scene_meta
 from tpurt_torch.scene import procedural as port_proc
@@ -162,10 +162,10 @@ def test_buddha_render_matches_plain_reference(monkeypatch,
     cfg = RenderConfig(scene="buddha", width=64, height=48, spp=2,
                        spp_per_batch=2, max_bounces=2, use_nee=True,
                        seed=2718281901)
-    tilewave.reset_wave_mode_counts()
+    kernels.reset("waves.")
     state, _ = rd.render_scene(cfg, scene=scene, device="cpu")
-    waves = tilewave.wave_mode_counts()
-    assert set(waves) == {mode} and waves[mode] >= 3
+    waves = kernels.counts("waves.")
+    assert set(waves) == {f"waves.{mode}"} and waves[f"waves.{mode}"] >= 3
     got = fb.resolve(state).reshape(-1, 3)
     assert _off_share(got, reference_pixels) <= limit
 

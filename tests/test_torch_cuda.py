@@ -83,9 +83,9 @@ def test_entries_cuda_matches_plain(cuda_device):
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda_device)
     scale = tw.tn_scale_of(lo, hi)
     args = (t(org), tw._safe_inv(t(d)), t(tm), t(lo), t(hi), scale)
-    before = tw.entries_cuda.launches
+    before = kernels.launch_counts()["entries"]
     got = tw.entries_cuda(*args)
-    assert tw.entries_cuda.launches == before + 1
+    assert kernels.launch_counts()["entries"] == before + 1
     want = tw.entries_plain(*args)
     assert got.shape == (n_tiles, 256)
     assert torch.equal(got, want)
@@ -121,9 +121,11 @@ def test_render_on_cuda_matches_cpu(cuda_device):
                      max_bounces=2)
     scene = bunny_standin(subdivisions=3)
     cpu, _ = render_scene(cfg, device="cpu", scene=scene)
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     gpu, stats = render_scene(cfg, device=cuda_device, scene=scene)
-    assert tw.entries_cuda.launches > 0 and tw.tileloop_cuda.launches > 0
+    counts = kernels.launch_counts()
+    assert counts["entries"] > 0
+    assert sum(n for k, n in counts.items() if k.startswith("tileloop")) > 0
     again, _ = render_scene(cfg, device=cuda_device, scene=scene)
     assert torch.equal(gpu.accum, again.accum)
     a = fb.resolve(gpu).cpu().numpy()
@@ -198,9 +200,9 @@ def test_tileloop_cuda_modes_match_plain(cuda_device, mode, any_hit):
     and instances where the slot agrees; each mode counts under its own
     launch name."""
     args, tl = _k1_modes_case(mode, cuda_device)
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     k = tw.tileloop_cuda(*args, any_hit, **tl)
-    assert tw.launch_counts()[f"tileloop_{mode}"] == 1
+    assert kernels.launch_counts()[f"tileloop_{mode}"] == 1
     p = tw.tileloop_plain(*args, any_hit, exact_boxes=True, **tl)
     assert len(k) == len(p) == (5 if "pair_meta" in tl else 4)
     live = args[3] >= 0
@@ -252,9 +254,9 @@ def test_all_pairs_render_on_cuda_matches_cpu(cuda_device, name):
     all-pairs mode and matches the CPU render within RMSE 1e-3."""
     cfg = get_config(name, width=64, height=48, spp=4, spp_per_batch=4)
     cpu, _ = render_scene(cfg, device="cpu")
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     gpu, _ = render_scene(cfg, device=cuda_device)
-    assert tw.launch_counts()["tileloop_allpairs"] > 0
+    assert kernels.launch_counts()["tileloop_allpairs"] > 0
     a = fb.resolve(gpu).cpu().numpy()
     b = fb.resolve(cpu).numpy()
     assert np.isfinite(a).all()
@@ -267,9 +269,9 @@ def test_exact_mask_cuda_matches_plain(wave):
     w = wave
     acc = w["accel"]
     args = (w["org"], w["inv_d"], w["tmax"], acc.cluster_lo, acc.cluster_hi)
-    before = tw.exact_mask_cuda.launches
+    before = kernels.launch_counts()["exact_mask"]
     mask, tn = tw.exact_mask_cuda(*args)
-    assert tw.exact_mask_cuda.launches == before + 1
+    assert kernels.launch_counts()["exact_mask"] == before + 1
     p_mask, p_tn = tw.exact_mask_plain(*args)
     assert mask.dtype == torch.bool and mask.shape == (3, 14)
     assert torch.equal(mask, p_mask) and torch.equal(tn, p_tn)
@@ -348,12 +350,12 @@ def test_slab_ray_counts_count_live_rays_and_graph_replays(cuda_device):
                                               cuda_device)
     scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
     one = (4 * tw.TILE, int((tmax >= 0).sum()))
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     tw.entries_cuda(org, inv_d, tmax, lo, hi, scale)
     assert tw.slab_ray_counts() == {"entries": one, "exact_mask": (0, 0)}
     tw.exact_mask_cuda(org, inv_d, tmax, lo, hi)
     assert tw.slab_ray_counts() == {"entries": one, "exact_mask": one}
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     assert tw.slab_ray_counts() == {"entries": (0, 0),
                                     "exact_mask": (0, 0)}
     graph = torch.cuda.CUDAGraph()
@@ -450,9 +452,9 @@ def test_packet_cuda_matches_plain(cuda_device, any_hit):
                     rng.uniform(2.0, 6.0, n) if any_hit else 3.4e38)
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda_device)
     args = (pk.packet_tables(acc), t(org), t(d), t(tmax), any_hit)
-    before = pk.packet_cuda.launches
+    before = kernels.launch_counts()["packet"]
     got = pk.packet_cuda(*args)
-    assert pk.packet_cuda.launches == before + 1
+    assert kernels.launch_counts()["packet"] == before + 1
     want = pk.packet_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -485,9 +487,9 @@ def test_tileloop_seg_cuda_matches_plain(wave, any_hit):
         pairs_per_tile=0, pcap=3 * 14)
     assert not bool(over) and int(n_pairs) == int(off[-1]) > 0
     args = (*rays, acc.tri_rows, off, pair_cl, w["scale"], any_hit)
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     k = tw.tileloop_seg_cuda(*args)
-    assert tw.launch_counts()["tileloop_seg"] == 1
+    assert kernels.launch_counts()["tileloop_seg"] == 1
     p = tw.tileloop_seg_plain(*args, exact_boxes=True)
     _hold_to_k1_bars(k, p, w["tmax"])
     entry, counts = tw._segments_to_rows(off, pair_cl)
@@ -523,11 +525,11 @@ def test_tilegrid_cuda_matches_plain(cuda_device, wave, mode, any_hit):
         all_pairs=all_pairs)
     assert not bool(over)
     args = (*rays, acc.tri_rows, packed, any_hit)
-    tw.reset_launch_counts()
+    kernels.reset_launch_counts()
     k = tw.tilegrid_cuda(*args, all_pairs=all_pairs, **tl)
     name = "tilegrid" + ("_tl" if tl else "") + ("_allpairs" if all_pairs
                                                  else "")
-    assert tw.launch_counts()[name] == 1
+    assert kernels.launch_counts()[name] == 1
     p = tw.tilegrid_plain(*args, exact_boxes=True, **tl)
     assert len(k) == len(p) == (5 if tl else 4)
     assert bool((p[3] >= 0).any())
@@ -660,13 +662,14 @@ def test_wave_modes_counted_on_graph_replays(cuda_device, monkeypatch):
     cfg = get_config("bunny", width=160, height=120, spp=1,
                      spp_per_batch=1, max_bounces=2)
     scene = bunny_standin(subdivisions=3)
-    tw.reset_wave_mode_counts()
+    kernels.reset("waves.")
     render_scene(cfg, device="cpu", scene=scene)
-    one = tw.wave_mode_counts()
-    assert set(one) == {"sc_rows"} and one["sc_rows"] >= 3
+    one = kernels.counts("waves.")
+    assert set(one) == {"waves.sc_rows"} and one["waves.sc_rows"] >= 3
     render_scene(cfg, device=cuda_device, scene=scene)  # captures
-    tw.reset_wave_mode_counts()
+    kernels.reset("waves.")
     cfg3 = get_config("bunny", width=160, height=120, spp=3,
                       spp_per_batch=1, max_bounces=2)
     render_scene(cfg3, device=cuda_device, scene=scene)
-    assert tw.wave_mode_counts() == {"sc_rows": 3 * one["sc_rows"]}
+    assert kernels.counts("waves.") == {"waves.sc_rows":
+                                        3 * one["waves.sc_rows"]}

@@ -27,6 +27,7 @@ the ``cuda`` test also runs on a machine without them:
 import contextlib
 import io
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -40,6 +41,7 @@ from tpurt_torch.kernels import packet as pk
 from tpurt_torch.kernels import tilewave as tw
 from tpurt_torch.render.staged import StagedRenderer, make_staged_renderer
 from tpurt_torch.scene.procedural import bunny_standin, cornell_box
+from tpurt_torch.utils import profiling
 from tpurt_torch.utils.config import get_config
 
 BUNNY = dict(width=48, height=32, spp=2, spp_per_batch=2, max_bounces=2)
@@ -374,25 +376,109 @@ def test_captured_programs_read_nothing_from_the_host(monkeypatch, name,
 
 
 def test_launch_counts_survive_a_capture_and_add_on_replay():
-    """The bookkeeping a graph does around its capture: the counts made
-    while capturing are taken back and added again on every replay."""
+    """The bookkeeping a graph does around its capture: the launches and
+    waves counted while capturing are taken back and added again on
+    every replay, the waves in the recorder too."""
     kernels.reset_launch_counts()
-    tw.entries_cuda.launches = 2
-    tw.tileloop_cuda.variant_launches = {"tileloop": 3}
-    before = kernels.launch_snapshot()
-    tw.entries_cuda.launches += 1  # what a capture counts
-    tw.tileloop_cuda.variant_launches["tileloop"] += 2
-    tw.tileloop_cuda.variant_launches["tileloop_sc"] = 1
-    pk.packet_cuda.launches += 4
-    delta = kernels.take_launches_since(before)
-    assert kernels.launch_counts()["entries"] == 2
-    assert kernels.launch_counts().get("tileloop_sc") is None
-    for _ in range(3):
-        kernels.add_launches(delta)
-    counts = kernels.launch_counts()
+    kernels.reset("waves.")
+    was = profiling.recording()
+    profiling.record(True)
+    try:
+        kernels.add({"entries": 2, "tileloop": 3, "waves.cluster_rows": 1})
+        before = kernels.counts()
+        # what a capture counts
+        kernels.add({"entries": 1, "tileloop": 2, "tileloop_sc": 1,
+                     "packet": 4, "waves.sc_rows": 2})
+        delta = kernels.take_since(before)
+        assert kernels.launch_counts()["entries"] == 2
+        assert kernels.launch_counts().get("tileloop_sc") is None
+        assert kernels.counts("waves.") == {"waves.cluster_rows": 1}
+        assert profiling.records()["counts"].get("waves.sc_rows") == 0
+        for _ in range(3):
+            kernels.add(delta)
+        counts = kernels.launch_counts()
+        recorded = profiling.records()["counts"]
+    finally:
+        profiling.record(was)
     assert (counts["entries"], counts["tileloop"], counts["tileloop_sc"],
             counts["packet"]) == (5, 9, 3, 12)
+    assert kernels.counts("waves.") == {"waves.cluster_rows": 1,
+                                        "waves.sc_rows": 6}
+    assert recorded["waves.sc_rows"] == 6
+    kernels.reset_launch_counts()  # the launches, not the waves
+    assert kernels.launch_counts() == {"entries": 0, "exact_mask": 0,
+                                       "pair": 0, "packet": 0, "shade": 0}
+    assert kernels.counts() == {"waves.cluster_rows": 1, "waves.sc_rows": 6}
+    kernels.reset("waves.")
+    assert kernels.counts() == {}
+
+
+class _FakeLibrary:
+    """A kernel library whose every entry point records its arguments and
+    returns ``err``."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.err
+        return entry
+
+
+@pytest.mark.parametrize("key,entry,err,work,want", [
+    ("entries", "tpurt_entries", 700, True,
+     "entries kernel launch failed: cudaError 700"),
+    ("tileloop_tl_sc", "tpurt_tileloop", 0, False, None),
+    ("tileloop_tl_sc", "tpurt_tileloop", 0, True, None),
+    ("tileloop_tl_xx", None, 0, True, "no device kernel"),
+], ids=["error", "no_work", "work", "unknown_key"])
+def test_launch_counts_its_key_once_when_it_had_work(monkeypatch, key, entry,
+                                                     err, work, want):
+    """``launch`` calls the key's entry point with the device's current
+    stream last, raises with the kernel's name on a nonzero cudaError,
+    and counts the key only when the launch had work and succeeded."""
+    from types import SimpleNamespace
+
+    from tpurt_torch.kernels import cuda_build
+
+    lib = _FakeLibrary(err)
+    monkeypatch.setattr(cuda_build, "_LOADED", [SimpleNamespace(lib=lib)])
+    monkeypatch.setattr(kernels, "_stream", lambda device: 77)
     kernels.reset_launch_counts()
+    if want is None:
+        kernels.launch(key, "cuda", 1, 2.5, work=work)
+    else:
+        with pytest.raises((RuntimeError, KeyError), match=want):
+            kernels.launch(key, "cuda", 1, 2.5, work=work)
+    assert lib.calls == ([(entry, (1, 2.5, 77))] if entry else [])
+    launched = int(want is None and work)
+    assert kernels.launch_counts().get(key, 0) == launched
+    assert sum(kernels.launch_counts().values()) == launched
+    kernels.reset_launch_counts()
+
+
+def _launch_keys():
+    """Every launch key the launchers can count: K2, K3, K6, K5 and S1,
+    K1's modes (``tilewave._variant``) and K4's names (tilegrid_cuda)."""
+    k1 = {tw._variant(pm, sc, scale, seg) for pm in (None, 1)
+          for sc in (None, 1) for scale in (0.0, 1.0) for seg in (False, True)}
+    k4 = {"tilegrid" + tl + ap for tl in ("", "_tl")
+          for ap in ("", "_allpairs")}
+    return ["entries", "exact_mask", "pair", "packet", "shade",
+            *sorted(k1), *sorted(k4)]
+
+
+@pytest.mark.parametrize("key", _launch_keys())
+def test_every_launch_key_has_a_device_kernel(key):
+    """The kernel table names a kernel that csrc defines for the key, and
+    the key names the library entry point it launches through."""
+    src = pathlib.Path(kernels.__file__).parent.parent / "csrc"
+    kernel = kernels.KERNELS[key].split("<")[0]
+    defined = "".join(f.read_text() for f in sorted(src.glob("*.cu")))
+    assert f"\n{kernel}(" in defined
+    assert kernels.ENTRY_POINTS[kernels._kernel_name(key)] in defined
 
 
 @pytest.fixture

@@ -32,6 +32,7 @@ from tpurt.scene import procedural as ref_proc
 from tpurt.scene.device import to_device as ref_to_device
 from tpurt.utils import native as ref_native
 from tpurt.utils.config import get_config as ref_config
+from tpurt_torch import kernels
 from tpurt_torch.bvh.cluster import PacketAccel, build_packet_accel
 from tpurt_torch.kernels import packet as pk
 from tpurt_torch.render import framebuffer as fb
@@ -223,7 +224,7 @@ def test_packet_closures(bunny_walk):
     with pytest.raises(ValueError, match="CUDA"):
         pk.packet_cuda(tuple(w["p_acc"][:10]), org[:2048], d[:2048],
                        t(w["tmax"])[:2048], False)
-    assert pk.packet_cuda.launches == 0
+    assert kernels.launch_counts()["packet"] == 0
 
 
 def test_packet_render_matches_reference(monkeypatch):

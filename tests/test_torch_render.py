@@ -171,6 +171,19 @@ def test_every_ladder_preset_renders(name):
         assert stats["rays_closest"] == 32 * 24 and stats["rays_shadow"] == 0
 
 
+@pytest.mark.parametrize("name,over", [
+    ("cornell", dict(width=32, height=32, spp=2, spp_per_batch=2,
+                     max_bounces=1, intersector="bvh_tile")),
+])
+def test_rays_traced_equal_the_reference(name, over):
+    """The rays the port counts on its waves equal the reference's for
+    the same config, exactly: both trace from the same counter-based
+    samples (the reference's tile intersector in interpret mode)."""
+    _, stats = render_scene(get_config(name, **over), device="cpu")
+    _, ref_stats = ref_render(ref_config(name, **over))
+    assert stats["rays_traced"] == ref_stats["rays_traced"] > 0
+
+
 def test_flat_shading_matches_reference():
     """hello_triangle's flat shading (albedo at a hit, background on a
     miss) equals the reference's staged render bit for bit."""

@@ -210,6 +210,20 @@ def test_tileloop_plain_two_level_matches_pallas(monkeypatch, sc, any_hit):
             _close(got[k], want[k], both["diag"], name)
 
 
+@functools.lru_cache(maxsize=None)
+def _oracle_closest(scene):
+    """The closest-hit rays of the two-level intersector test on
+    ``scene`` (org, d, tmax) and the brute-force oracle's hits on them,
+    computed once for both ray sorts."""
+    both = _setup(scene)
+    n = 2 * tw.TILE - 300  # not a tile multiple: exercises the padding
+    org, d = _rays(5, n, (-12.0, 3.0, -1.0), (-4.0, 1.5, 2.5), 0.3)
+    tmax = np.where(np.arange(n) % 7 == 0, -1.0, np.inf).astype(np.float32)
+    b_closest, _ = port_brute(both["p_ds"], both["p_meta"])
+    t = torch.from_numpy
+    return org, d, tmax, b_closest(t(org), t(d), 0.0, t(tmax))
+
+
 @pytest.mark.parametrize("scene,sort", [("sponza_small", "none"),
                                         ("sponza_small", "octant"),
                                         ("sponza", "none"),
@@ -221,9 +235,8 @@ def test_tile_intersector_two_level_matches_reference_and_oracle(
     entries on the full one (primary waves through the interval mask
     over the superboxes, sorted waves through K2 over them)."""
     both = _setup(scene)
-    n = 2 * tw.TILE - 300  # not a tile multiple: exercises the padding
-    org, d = _rays(5, n, (-12.0, 3.0, -1.0), (-4.0, 1.5, 2.5), 0.3)
-    tmax = np.where(np.arange(n) % 7 == 0, -1.0, np.inf).astype(np.float32)
+    org, d, tmax, oracle = _oracle_closest(scene)
+    n = org.shape[0]
     shadow_tmax = np.where(np.arange(n) % 5 == 0, -1.0,
                            np.random.default_rng(6).uniform(0.5, 12.0, n)
                            ).astype(np.float32)
@@ -232,12 +245,11 @@ def test_tile_intersector_two_level_matches_reference_and_oracle(
         lean=True)
     p_closest, p_any = tw.make_tile_intersector(
         both["p_ds"], both["p_acc"], ray_sort=sort, lean=True)
-    b_closest, b_any = port_brute(both["p_ds"], both["p_meta"])
+    _, b_any = port_brute(both["p_ds"], both["p_meta"])
     t = torch.from_numpy
     want = r_closest(jnp.asarray(org), jnp.asarray(d), 0.0,
                      jnp.asarray(tmax))
     got = p_closest(t(org), t(d), 0.0, t(tmax))
-    oracle = b_closest(t(org), t(d), 0.0, t(tmax))
     valid = np.asarray(want.valid)
     assert valid.sum() > 500
     np.testing.assert_array_equal(got.valid.numpy(), valid)

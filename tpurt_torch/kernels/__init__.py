@@ -12,76 +12,120 @@ tensors. ``shade`` launches the staged loop's shade of a wave
 (``shade.shade_path``). ``cuda_build`` compiles the sources with nvcc at
 first use.
 
-Each CUDA wrapper counts its launches on itself (``.launches``, and K1
-and K4 by mode in ``.variant_launches``). A CUDA graph runs no Python on
-replay, so the staged loop's graphs take a ``launch_snapshot`` before
-each capture, take back what the capture counted
-(``take_launches_since``: a capture launches nothing) and add it again
-on every replay (``add_launches``); ``chip_smoke.py`` holds each graph's
-count to the kernel nodes that libcuda holds for it.
+Every CUDA launcher goes through ``launch``, which counts the launch
+under its key here: ``entries`` (K2), ``exact_mask`` (K3), K1's and K4's
+modes (``tileloop…``, ``tilegrid…``), ``pair`` (K6), ``packet`` (K5) and
+``shade`` (S1); ``KERNELS`` names the device kernel behind each key. The
+tile intersector counts its waves here too, by tile mode
+(``waves.<mode>``). A CUDA graph runs no Python on replay, so the staged
+loop's graphs take back what their capture counted (``take_since``: a
+capture launches nothing) and add it again on every replay (``add``);
+``chip_smoke.py`` holds each graph's count to the kernel nodes that
+libcuda holds for it.
 """
 
+import torch
 
-def _wrappers():
-    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
+from tpurt_torch.utils import profiling
 
-    return (tilewave.entries_cuda, tilewave.exact_mask_cuda,
-            tilewave.tileloop_cuda, tilewave.tilegrid_cuda,
-            pairwave.pair_test_cuda, packet.packet_cuda, shade.shade_cuda)
+# the library entry point of each kernel's launches, by the name its
+# launch errors give; a launch key starts with its kernel's name
+ENTRY_POINTS = {"entries": "tpurt_entries",
+                "exact_mask": "tpurt_exact_mask",
+                "tileloop": "tpurt_tileloop", "tilegrid": "tpurt_tilegrid",
+                "pair": "tpurt_pair_test", "packet": "tpurt_packet",
+                "shade": "tpurt_shade"}
+# the device kernel (tpurt_torch/csrc) behind each launch key: K1's modes
+# (tilewave._variant) and K4's are variants of one template
+KERNELS = {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
+           **{f"tileloop{tl}{mode}": "tileloop_kernel" for tl in ("", "_tl")
+              for mode in ("", "_sc", "_seg", "_allpairs")},
+           **{f"tilegrid{tl}{mode}": "tileloop_kernel" for tl in ("", "_tl")
+              for mode in ("", "_allpairs")},
+           "pair": "pair_kernel", "packet": "packet_kernel",
+           "shade": "shade_kernel"}
+# the launch keys that ``launch_counts`` always holds (K1's and K4's modes
+# appear once launched)
+FIXED = ("entries", "exact_mask", "pair", "packet", "shade")
+
+_COUNTS: dict = {}  # launch keys and "waves.<mode>" since their reset
+
+
+def _kernel_name(key: str) -> str:
+    return next(name for name in ENTRY_POINTS if key.startswith(name))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``key``; a wave mode also counts in the
+    recorder (``profiling.count``)."""
+    _COUNTS[key] = _COUNTS.get(key, 0) + n
+    if key.startswith("waves."):
+        profiling.count(key, n)
+
+
+def counts(prefix: str = "") -> dict:
+    """The counters whose key starts with ``prefix``, those above 0."""
+    return {k: n for k, n in _COUNTS.items() if k.startswith(prefix) and n}
+
+
+def reset(prefix: str) -> None:
+    """Zero the counters whose key starts with ``prefix``."""
+    for k in [k for k in _COUNTS if k.startswith(prefix)]:
+        del _COUNTS[k]
+
+
+def take_since(before: dict) -> dict:
+    """The counts added since ``before`` (a ``counts()``), taken back off
+    the counters."""
+    delta = {k: n - before.get(k, 0) for k, n in _COUNTS.items()
+             if n != before.get(k, 0)}
+    add({k: -n for k, n in delta.items()})
+    return delta
+
+
+def add(delta: dict) -> None:
+    """Add counts by key (a graph's, on each replay)."""
+    for k, n in delta.items():
+        count(k, n)
+
+
+def launch(key: str, device, *args, work: bool) -> None:
+    """Launch the kernel of ``key`` (an entry of ``KERNELS``) through its
+    library entry point with ``args`` and ``device``'s current stream;
+    count the launch when it had ``work`` (a launcher over no tiles, pairs
+    or rays launches nothing)."""
+    from tpurt_torch.kernels import cuda_build
+
+    if key not in KERNELS:
+        raise KeyError(f"{key}: no device kernel in KERNELS")
+    name = _kernel_name(key)
+    entry = getattr(cuda_build.load().lib, ENTRY_POINTS[name])
+    err = entry(*args, _stream(device))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if work:
+        count(key)
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch counter."""
-    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
+    """Zero every kernel's launch counter, and K2's and K3's ray counters
+    on the card (``tilewave.slab_ray_counts``)."""
+    from tpurt_torch.kernels import tilewave
 
-    tilewave.reset_launch_counts()
-    pairwave.reset_launch_counts()
-    packet.reset_launch_counts()
-    shade.reset_launch_counts()
+    tilewave._slab_rays(reset=True)
+    for k in KERNELS:
+        _COUNTS.pop(k, None)
 
 
 def launch_counts() -> dict:
-    """Launches since the last reset, by kernel (K1 and K4 by mode)."""
-    from tpurt_torch.kernels import packet, pairwave, shade, tilewave
-
-    return {**tilewave.launch_counts(), **pairwave.launch_counts(),
-            **packet.launch_counts(), **shade.launch_counts()}
-
-
-def launch_snapshot() -> dict:
-    """Every counter's value, keyed (wrapper, attribute, mode or None)."""
-    snap = {}
-    for fn in _wrappers():
-        for attr in ("launches", "variant_launches"):
-            value = getattr(fn, attr, None)
-            if isinstance(value, dict):
-                snap.update(((fn, attr, k), n) for k, n in value.items())
-            elif value is not None:
-                snap[(fn, attr, None)] = value
-    return snap
-
-
-def take_launches_since(snap: dict) -> dict:
-    """The counts added since ``snap``, by the same keys; every counter
-    is put back to its value in ``snap``."""
-    now = launch_snapshot()
-    for fn in _wrappers():
-        if isinstance(getattr(fn, "variant_launches", None), dict):
-            fn.variant_launches = {}
-    for (fn, attr, k), n in snap.items():
-        if k is None:
-            setattr(fn, attr, n)
-        else:
-            getattr(fn, attr)[k] = n
-    return {k: n - snap.get(k, 0) for k, n in now.items()
-            if n != snap.get(k, 0)}
-
-
-def add_launches(delta: dict) -> None:
-    """Add ``take_launches_since``'s counts to the counters."""
-    for (fn, attr, k), n in delta.items():
-        if k is None:
-            setattr(fn, attr, getattr(fn, attr) + n)
-        else:
-            counts = getattr(fn, attr)
-            counts[k] = counts.get(k, 0) + n
+    """Launches since the last reset, by launch key: the ``FIXED`` keys,
+    then K1's and K4's modes that launched, in ``ENTRY_POINTS``' order."""
+    got = {**dict.fromkeys(FIXED, 0),
+           **{k: n for k, n in counts().items() if k in KERNELS}}
+    order = list(ENTRY_POINTS)
+    return dict(sorted(got.items(),
+                       key=lambda kv: order.index(_kernel_name(kv[0]))))

@@ -52,11 +52,10 @@ class KernelLibrary:
         lib.tpurt_entries.restype = i
         lib.tpurt_exact_mask.argtypes = [p, p, p, p, p, i, i, i, p, p, p]
         lib.tpurt_exact_mask.restype = i
-        if hasattr(lib, "tpurt_slab_rays"):  # not in older checkouts' csrc
-            lib.tpurt_slab_rays.argtypes = [p, p]
-            lib.tpurt_slab_rays.restype = i
-            lib.tpurt_slab_rays_reset.argtypes = [p]
-            lib.tpurt_slab_rays_reset.restype = i
+        lib.tpurt_slab_rays.argtypes = [p, p]
+        lib.tpurt_slab_rays.restype = i
+        lib.tpurt_slab_rays_reset.argtypes = [p]
+        lib.tpurt_slab_rays_reset.restype = i
         lib.tpurt_pair_test.argtypes = [p, p, p, p, p, p, p, ctypes.c_long,
                                         p, p, p, p, p]
         lib.tpurt_pair_test.restype = i

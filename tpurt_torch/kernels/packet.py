@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from tpurt_torch import kernels
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.render.intersectors import Hit
 
@@ -220,8 +221,7 @@ def packet_cuda(tables, org, dirn, tmax, any_hit: bool):
     """Launch the CUDA walk (csrc/packet.cu) on the current stream over
     ``packet_tables``' packed nodes. Returns (bt, bu, bv, bs, (G, 2) f32
     counters)."""
-    from tpurt_torch.kernels import cuda_build
-    from tpurt_torch.kernels.tilewave import _check, _stream
+    from tpurt_torch.kernels.tilewave import _check
 
     dev = org.device
     if dev.type != "cuda":
@@ -243,20 +243,12 @@ def packet_cuda(tables, org, dirn, tmax, any_hit: bool):
         raise ValueError("the packed nodes must be 16-byte aligned")
     out = torch.empty((4, n), dtype=f32, device=dev)
     stats = torch.zeros((n // PACKET, 2), dtype=torch.int32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_packet(
-        nodes.data_ptr(), n_nodes, tables[9].data_ptr(), org.data_ptr(),
-        dirn.data_ptr(), tmax.data_ptr(), n, int(bool(any_hit)),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        out[3].data_ptr(), stats.data_ptr(), _stream(dev))
-    if err:
-        raise RuntimeError(f"packet kernel launch failed: cudaError {err}")
-    if n:  # no rays: the launcher launches nothing
-        packet_cuda.launches += 1
+    kernels.launch(
+        "packet", dev, nodes.data_ptr(), n_nodes, tables[9].data_ptr(),
+        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), n,
+        int(bool(any_hit)), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), out[3].data_ptr(), stats.data_ptr(), work=n > 0)
     return (*out, stats.to(f32))
-
-
-packet_cuda.launches = 0
 
 
 def packet(tables, org, dirn, tmax, any_hit: bool):
@@ -264,14 +256,6 @@ def packet(tables, org, dirn, tmax, any_hit: bool):
     CPU tensors."""
     fn = packet_plain if org.device.type == "cpu" else packet_cuda
     return fn(tables, org, dirn, tmax, any_hit)
-
-
-def reset_launch_counts() -> None:
-    packet_cuda.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"packet": packet_cuda.launches}
 
 
 # --------------------------------------------------------------------------

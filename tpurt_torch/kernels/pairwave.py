@@ -32,10 +32,11 @@ import math
 
 import torch
 
+from tpurt_torch import kernels
 from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG
-from tpurt_torch.kernels.tilewave import _check, _row_tests, _stream
+from tpurt_torch.kernels.tilewave import _check, _row_tests
 from tpurt_torch.render.intersectors import Hit
 
 BLOCK = 1024  # pair slots per kernel block of the list
@@ -171,8 +172,6 @@ def pair_test_cuda(pair_ray, pair_cluster, block_cmin, org, dirn, tmax,
                    tri_rows):
     """Launch the CUDA pair-test kernel (csrc/pairwave.cu) on the current
     stream. Returns (bt, bu, bv, bs), each (P,) f32."""
-    from tpurt_torch.kernels import cuda_build
-
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"pair_test_cuda needs CUDA tensors, got {dev}")
@@ -190,20 +189,12 @@ def pair_test_cuda(pair_ray, pair_cluster, block_cmin, org, dirn, tmax,
     _check("tmax", tmax, f32, (n,), dev)
     _check("tri_rows", tri_rows, f32, (tri_rows.shape[0], 128), dev)
     out = torch.empty((4, p), dtype=f32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_pair_test(
-        pair_ray.data_ptr(), pair_cluster.data_ptr(), block_cmin.data_ptr(),
-        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(),
-        tri_rows.data_ptr(), p, out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), out[3].data_ptr(), _stream(dev))
-    if err:
-        raise RuntimeError(f"pair kernel launch failed: cudaError {err}")
-    if p:  # no pair slots: the launcher launches nothing
-        pair_test_cuda.launches += 1
+    kernels.launch(
+        "pair", dev, pair_ray.data_ptr(), pair_cluster.data_ptr(),
+        block_cmin.data_ptr(), org.data_ptr(), dirn.data_ptr(),
+        tmax.data_ptr(), tri_rows.data_ptr(), p, out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), work=p > 0)
     return tuple(out)
-
-
-pair_test_cuda.launches = 0
 
 
 def pair_test(pair_ray, pair_cluster, block_cmin, org, dirn, tmax, tri_rows):
@@ -211,15 +202,6 @@ def pair_test(pair_ray, pair_cluster, block_cmin, org, dirn, tmax, tri_rows):
     CPU tensors."""
     fn = pair_test_plain if org.device.type == "cpu" else pair_test_cuda
     return fn(pair_ray, pair_cluster, block_cmin, org, dirn, tmax, tri_rows)
-
-
-def reset_launch_counts() -> None:
-    pair_test_cuda.launches = 0
-
-
-def launch_counts() -> dict:
-    """Launches of K6 since the last reset."""
-    return {"pair": pair_test_cuda.launches}
 
 
 # --------------------------------------------------------------------------

@@ -21,8 +21,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from tpurt_torch import kernels
 from tpurt_torch.core.vecmath import EPS_RAY
-from tpurt_torch.kernels.tilewave import _check, _stream
+from tpurt_torch.kernels.tilewave import _check
 
 LIGHT_LANES = 16  # floats a light row: v0, v1, v2, emission, area, pad
 
@@ -90,8 +91,6 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
     Returns (the next wave: ``state`` with its fields replaced and the
     live count added to its counters at 4 + bounce; with ``use_nee`` the
     shadow tuple (org, dir, tmax, contrib, want), else None)."""
-    from tpurt_torch.kernels import cuda_build
-
     dev = state.org.device
     if dev.type != "cuda":
         raise ValueError(f"shade_cuda needs CUDA tensors, got {dev}")
@@ -145,8 +144,8 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
     shadow = ((empty3(), empty3(), torch.empty(n, dtype=f32, device=dev),
                empty3(), flag()) if use_nee else None)
     ptr = lambda x: None if x is None else x.data_ptr()
-    lib = cuda_build.load().lib
-    err = lib.tpurt_shade(
+    kernels.launch(
+        "shade", dev,
         *(x.data_ptr() for x in (org, dirn, rad, thr, state.alive,
                                  state.allow_emission, state.pix,
                                  state.sample, t, u, v, slot, hit.valid,
@@ -157,24 +156,8 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
         bounce, int(bounce >= max_bounces), int(use_nee), EPS_RAY,
         1.0 - shadow_eps, n, *(x.data_ptr() for x in out),
         *(ptr(x) for x in (shadow or (None,) * 5)),
-        rays[4 + bounce:].data_ptr(), _stream(dev))
-    if err:
-        raise RuntimeError(f"shade kernel launch failed: cudaError {err}")
-    if n:
-        shade_cuda.launches += 1
+        rays[4 + bounce:].data_ptr(), work=n > 0)
     org, dirn, rad, thr, alive, allow = out
     return state._replace(org=org, dirn=dirn, radiance=rad, throughput=thr,
                           alive=alive, allow_emission=allow,
                           rays=rays), shadow
-
-
-shade_cuda.launches = 0
-
-
-def reset_launch_counts() -> None:
-    shade_cuda.launches = 0
-
-
-def launch_counts() -> dict:
-    """Launches of S1 since the last reset."""
-    return {"shade": shade_cuda.launches}

@@ -69,6 +69,7 @@ import os
 import numpy as np
 import torch
 
+from tpurt_torch import kernels
 from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER, SC_SIZE
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG, DEAD_KEY, EPS_DENOM, \
@@ -274,10 +275,6 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _slab_args(name, org, inv_d, tmax, lo, hi):
     """Checks shared by the K2 and K3 launchers; returns (device, n_tiles,
     n_clusters, cp)."""
@@ -310,7 +307,7 @@ def _slab_rays(reset: bool):
     returns the sums read, (K2 slots, K2 live, K3 slots, K3 live)."""
     import ctypes
 
-    from tpurt_torch.kernels import cuda_build
+    from tpurt_torch.kernels import _stream, cuda_build
 
     total = [0, 0, 0, 0]
     if not _SLAB_DEVICES:
@@ -344,25 +341,15 @@ def slab_ray_counts() -> dict:
 def entries_cuda(org, inv_d, tmax, lo, hi, scale: float):
     """Launch the CUDA entry-build kernel (csrc/entries.cu) on the
     current stream. Returns the unsorted (T, cp) int32 slab."""
-    from tpurt_torch.kernels import cuda_build
-
     dev, n_tiles, n_c, cp = _slab_args("entries_cuda", org, inv_d, tmax, lo,
                                        hi)
     out = torch.empty((n_tiles, cp), dtype=torch.int32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_entries(
-        org.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), n_tiles, n_c, cp, scale, out.data_ptr(),
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"entries kernel launch failed: cudaError {err}")
-    if n_tiles:  # no tiles: the launcher launches nothing
-        entries_cuda.launches += 1
+    kernels.launch("entries", dev, org.data_ptr(), inv_d.data_ptr(),
+                   tmax.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_tiles,
+                   n_c, cp, scale, out.data_ptr(), work=n_tiles > 0)
+    if n_tiles:
         _SLAB_DEVICES.add(dev.index)
     return out
-
-
-entries_cuda.launches = 0
 
 
 def exact_entries(org, inv_d, tmax, lo, hi, scale: float):
@@ -377,26 +364,17 @@ def exact_mask_cuda(org, inv_d, tmax, lo, hi):
     """Launch the CUDA exact-mask kernel (csrc/entries.cu, the K2 body
     without the pack) on the current stream. Returns ((T, C) bool mask,
     (T, C) f32 tn_min, BIG where no ray hits)."""
-    from tpurt_torch.kernels import cuda_build
-
     dev, n_tiles, n_c, cp = _slab_args("exact_mask_cuda", org, inv_d, tmax,
                                        lo, hi)
     mask = torch.empty((n_tiles, n_c), dtype=torch.bool, device=dev)
     tn = torch.empty((n_tiles, n_c), dtype=torch.float32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_exact_mask(
-        org.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), n_tiles, n_c, cp, mask.data_ptr(), tn.data_ptr(),
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"exact_mask kernel launch failed: cudaError {err}")
-    if n_tiles:  # no tiles: the launcher launches nothing
-        exact_mask_cuda.launches += 1
+    kernels.launch("exact_mask", dev, org.data_ptr(), inv_d.data_ptr(),
+                   tmax.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_tiles,
+                   n_c, cp, mask.data_ptr(), tn.data_ptr(),
+                   work=n_tiles > 0)
+    if n_tiles:
         _SLAB_DEVICES.add(dev.index)
     return mask, tn
-
-
-exact_mask_cuda.launches = 0
 
 
 def exact_mask(org, inv_d, tmax, lo, hi):
@@ -929,8 +907,6 @@ def _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts, off,
                      scale, any_hit, pair_meta, inv_xform, sc_meta):
     """One K1 launch on the current stream: entry rows (``counts``) or
     pair segments (``off``)."""
-    from tpurt_torch.kernels import cuda_build
-
     dev, n_tiles = _ray_args("tileloop_cuda", org, dirn, inv_d, tmax,
                              tri_rows, pair_meta, inv_xform)
     i32 = torch.int32
@@ -954,21 +930,14 @@ def _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts, off,
     two_level = pair_meta is not None
     out = torch.empty((5 if two_level else 4, org.shape[0]),
                       dtype=torch.float32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_tileloop(
-        org.data_ptr(), dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
+    kernels.launch(
+        _variant(pair_meta, sc_meta, scale, seg), dev, org.data_ptr(),
+        dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
         tri_rows.data_ptr(), entries.data_ptr(), _ptr(counts), _ptr(off),
         n_tiles, cp, scale, int(bool(any_hit)), _ptr(pair_meta),
         _ptr(inv_xform), _ptr(sc_meta), out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr(), out[3].data_ptr(),
-        out[4].data_ptr() if two_level else None, _stream(dev))
-    if err:
-        raise RuntimeError(f"tileloop kernel launch failed: cudaError {err}")
-    if n_tiles:  # no tiles: the launcher launches nothing
-        tileloop_cuda.launches += 1
-        name = _variant(pair_meta, sc_meta, scale, seg)
-        tileloop_cuda.variant_launches[name] = \
-            tileloop_cuda.variant_launches.get(name, 0) + 1
+        out[4].data_ptr() if two_level else None, work=n_tiles > 0)
     return tuple(out)
 
 
@@ -982,10 +951,6 @@ def tileloop_cuda(org, dirn, inv_d, tmax, tri_rows, entries, counts,
     return _launch_tileloop(org, dirn, inv_d, tmax, tri_rows, entries,
                             counts, None, scale, any_hit, pair_meta,
                             inv_xform, sc_meta)
-
-
-tileloop_cuda.launches = 0
-tileloop_cuda.variant_launches = {}
 
 
 def tileloop(org, dirn, inv_d, tmax, tri_rows, entries, counts,
@@ -1114,8 +1079,6 @@ def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
     where a ray stops at its first hit. ``all_pairs`` (the list holds
     every (tile, cluster) pair) names the launch "tilegrid_allpairs".
     Returns (bt, bu, bv, bs[, bi]) per ray."""
-    from tpurt_torch.kernels import cuda_build
-
     dev, n_tiles = _ray_args("tilegrid_cuda", org, dirn, inv_d, tmax,
                              tri_rows, pair_meta, inv_xform)
     _check("packed", packed, torch.int32, (packed.shape[0],), dev)
@@ -1125,25 +1088,16 @@ def tilegrid_cuda(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
     two_level = pair_meta is not None
     out = torch.empty((5 if two_level else 4, org.shape[0]),
                       dtype=torch.float32, device=dev)
-    lib = cuda_build.load().lib
-    err = lib.tpurt_tilegrid(
-        org.data_ptr(), dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
+    kernels.launch(
+        "tilegrid" + ("_tl" if two_level else "")
+        + ("_allpairs" if all_pairs else ""), dev, org.data_ptr(),
+        dirn.data_ptr(), inv_d.data_ptr(), tmax.data_ptr(),
         tri_rows.data_ptr(), packed.data_ptr(), packed.shape[0], n_tiles,
         int(bool(any_hit)), _ptr(pair_meta), _ptr(inv_xform),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         out[3].data_ptr(), out[4].data_ptr() if two_level else None,
-        _stream(dev))
-    if err:
-        raise RuntimeError(f"tilegrid kernel launch failed: cudaError {err}")
-    if n_tiles:  # no tiles: the launcher launches nothing
-        name = ("tilegrid" + ("_tl" if two_level else "")
-                + ("_allpairs" if all_pairs else ""))
-        tilegrid_cuda.variant_launches[name] = \
-            tilegrid_cuda.variant_launches.get(name, 0) + 1
+        work=n_tiles > 0)
     return tuple(out)
-
-
-tilegrid_cuda.variant_launches = {}
 
 
 def tilegrid(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
@@ -1153,57 +1107,6 @@ def tilegrid(org, dirn, inv_d, tmax, tri_rows, packed, any_hit: bool,
     fn = tilegrid_plain if org.device.type == "cpu" else tilegrid_cuda
     return fn(org, dirn, inv_d, tmax, tri_rows, packed, any_hit,
               pair_meta=pair_meta, inv_xform=inv_xform, all_pairs=all_pairs)
-
-
-# waves traced since the last reset, by tile mode: "sc_rows" (entry rows
-# over the superclusters), "cluster_rows", "pair_segments", "all_pairs"
-# and "grid" (K4). A stage graph takes back what its capture counted and
-# adds it on every replay, as it does its launches; while the recorder is
-# on each wave also counts as "waves.<mode>".
-_WAVES: dict = {}
-
-
-def wave_mode_counts() -> dict:
-    """Waves traced since the last reset, by tile mode."""
-    return dict(_WAVES)
-
-
-def reset_wave_mode_counts() -> None:
-    _WAVES.clear()
-
-
-def add_waves(delta: dict) -> None:
-    """Add waves by tile mode (a replay's, or one wave's)."""
-    for mode, n in delta.items():
-        _WAVES[mode] = _WAVES.get(mode, 0) + n
-        profiling.count("waves." + mode, n)
-
-
-def take_waves_since(before: dict) -> dict:
-    """The waves counted since ``before`` (a ``wave_mode_counts()``),
-    taken back off the counters."""
-    delta = {m: n - before.get(m, 0) for m, n in _WAVES.items()
-             if n != before.get(m, 0)}
-    add_waves({m: -n for m, n in delta.items()})
-    return delta
-
-
-def reset_launch_counts() -> None:
-    """Zero the launch counters, and K2's and K3's ray counters."""
-    _slab_rays(reset=True)
-    entries_cuda.launches = 0
-    exact_mask_cuda.launches = 0
-    tileloop_cuda.launches = 0
-    tileloop_cuda.variant_launches = {}
-    tilegrid_cuda.variant_launches = {}
-
-
-def launch_counts() -> dict:
-    """Launches since the last reset: K2, K3, K1 by mode and K4."""
-    return {"entries": entries_cuda.launches,
-            "exact_mask": exact_mask_cuda.launches,
-            **tileloop_cuda.variant_launches,
-            **tilegrid_cuda.variant_launches}
 
 
 # --------------------------------------------------------------------------
@@ -1606,7 +1509,7 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
         tmv = _scene_exit_cap(org, dirn, tmv, lo_all, hi_all, diag)
         live_over = torch.zeros((), dtype=torch.float32, device=dev)
         if all_pairs:
-            add_waves({"all_pairs" if use_loop else "grid": 1})
+            kernels.count("waves." + ("all_pairs" if use_loop else "grid"))
             if use_loop:
                 out, n_pairs = _trace_all_pairs(org, dirn, tmv, tri_rows,
                                                 n_clusters, any_hit=any_hit,
@@ -1652,8 +1555,9 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
                 if one_launch:
                     chunk_tiles = kt
         exact = exact_env == "all" or (exact_env == "1" and sort != "none")
-        add_waves({("grid" if not use_loop else "sc_rows" if sc_active
-                    else "cluster_rows" if rows else "pair_segments"): 1})
+        kernels.count("waves." + ("grid" if not use_loop else "sc_rows"
+                                  if sc_active else "cluster_rows" if rows
+                                  else "pair_segments"))
         if not use_loop:
             out, n_pairs, overflow = _trace_grid(
                 org, dirn, tmv, lo, hi, tri_rows, chunk_tiles,

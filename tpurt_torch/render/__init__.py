@@ -59,9 +59,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpurt_torch import kernels
 from tpurt_torch.bvh.paircluster import clustering_mode
 from tpurt_torch.core.camera import Camera
-from tpurt_torch.kernels import shade as shade_kernel
 from tpurt_torch.render import framebuffer as fb
 from tpurt_torch.render.intersectors import scene_meta
 from tpurt_torch.render.png import write_png
@@ -313,14 +313,15 @@ def _render_scene(config, scene, camera, state, verbose, readback_stats,
     with profiling.span("scene_context"):
         ctx = _scene_context(config, scene, device, mesh)
     retries = rerenders = 0
-    shaded = shade_kernel.shade_cuda.launches
+    shaded = kernels.counts().get("shade", 0)
     while True:
         out_state, stats = _render_scene_once(config, ctx, camera, state,
                                               verbose, device,
                                               readback_stats, mesh)
         stats["budget_retries"] = retries
         stats["rerenders"] = rerenders
-        stats["shade_waves_cuda"] = shade_kernel.shade_cuda.launches - shaded
+        stats["shade_waves_cuda"] = (kernels.counts().get("shade", 0)
+                                     - shaded)
         if (not config.live_caps
                 and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
             autotune.record(config, stats)

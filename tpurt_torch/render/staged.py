@@ -61,9 +61,10 @@ a wave's lists are sized on the host (the pair segments, the grid over
 pairs, ``bvh_pair``'s expand, the LBVH walk's compaction: the
 intersector's ``host_read``): the renderer records ``graphs = False``
 and its ``graph_reason`` when it is built. Everything runs eagerly on
-the CPU. A kernel wrapper counts its launches in Python, which a replay
-does not run: each graph records what its capture counted and adds it
-again on every replay (``tpurt_torch.kernels.add_launches``);
+the CPU. The kernel launchers and the tile intersector count launches
+and waves in Python (``tpurt_torch.kernels``), which a replay does not
+run: each graph records what its capture counted and adds it again on
+every replay (``kernels.take_since``, ``kernels.add``);
 ``chip_smoke.py`` holds each graph's count to the kernel nodes that
 libcuda holds for it.
 
@@ -115,7 +116,6 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
 from tpurt_torch.kernels import shade as shade_kernel
-from tpurt_torch.kernels import tilewave
 from tpurt_torch.kernels.tilewave import BIG, TILE, _octant_sort_keys
 from tpurt_torch.render.integrator import (
     SHADOW_EPS,
@@ -327,10 +327,10 @@ class StagedRenderer:
             self.graph_reason = next((r for r in reads if r), "")
         self.graphs = (bool(graphs) and device.type == "cuda"
                        and not self.graph_reason)
-        # [(CUDAGraph, launches a replay adds, its op nodes and its steps'
-        # node ranges: profiling.NodeMarks.nodes)]
+        # [(CUDAGraph, the launches and waves a replay adds
+        # (kernels.take_since), its op nodes and its steps' node ranges:
+        # profiling.NodeMarks.nodes)]
         self._graphs = None
-        self._graph_waves = []  # a graph's waves by tile mode, a replay
         self._static_out = None  # the last graph's outputs
 
     # --- the batch's inputs ------------------------------------------------
@@ -706,14 +706,12 @@ class StagedRenderer:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         graphs, warm, static, pool_bytes = [], None, None, 0
-        self._graph_waves = []
         with profiling.span("graphs.capture"), torch.cuda.stream(side):
             for name, fn in self.programs():
                 with self._stage("eager", name, quiet=quiet):
                     warm = fn(warm)
                 graph = torch.cuda.CUDAGraph()
-                before = kernels.launch_snapshot()
-                waves = tilewave.wave_mode_counts()
+                before = kernels.counts()
                 with torch.cuda.graph(graph, pool=pool):
                     stream = torch.cuda.current_stream(dev).cuda_stream
                     reserved = torch.cuda.memory_reserved(dev)
@@ -722,9 +720,8 @@ class StagedRenderer:
                         static = fn(static)
                     pool_bytes += torch.cuda.memory_reserved(dev) - reserved
                 # a capture launches nothing: its counts go to the replays
-                graphs.append((graph, kernels.take_launches_since(before),
+                graphs.append((graph, kernels.take_since(before),
                                marks.nodes()))
-                self._graph_waves.append(tilewave.take_waves_since(waves))
         profiling.count("graphs.pool_bytes", pool_bytes)
         current = torch.cuda.current_stream(dev)
         current.wait_stream(side)
@@ -769,12 +766,11 @@ class StagedRenderer:
             return carry
         if self._graphs is None:
             return self._capture_graphs()
-        for (name, _), (graph, launches, nodes), waves in zip(
-                programs, self._graphs, self._graph_waves):
+        for (name, _), (graph, counted, nodes) in zip(programs,
+                                                       self._graphs):
             with self._stage("replay", name, nodes):
                 graph.replay()
-            kernels.add_launches(launches)
-            tilewave.add_waves(waves)
+            kernels.add(counted)
         # the next replay overwrites the static outputs
         with profiling.span("clone"):
             return tuple(t.clone() for t in self._static_out)

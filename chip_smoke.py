@@ -59,7 +59,14 @@ Phases, in order; any failure exits nonzero and prints no result:
                 shadow wave of one bunny batch (cluster boxes) and one
                 buddha.accum batch (superboxes, perfbench's frozen
                 scene), uncapped: ms beside slots, live rays and the
-                bound on the live rays ([k2 live] lines);
+                bound on the live rays ([k2 live] lines). The ray sort
+                (csrc/raysort.cu: keys, CUB's sort, gather, restore)
+                against its plain version on every bounce and shadow
+                wave of the same two batches (the bunny's also cut at
+                caps 5% above each wave's live rays): keys, permutation,
+                gathered rays, the live count past the cut and restored
+                outputs bit-equal, timed beside its bytes bound
+                ([raysort] lines);
   4. render   — each preset at its own size, one batch, through
                 render_scene(device="cuda"): bunny (8 spp), sponza (2
                 spp), cornell (16 spp) and hello_triangle (1 spp), the
@@ -363,7 +370,8 @@ def batch_waves(name: str, device, spp: int, sort: bool):
     return accel, waves, raw
 
 
-def slab_waves(config, scene, device, primary: bool = False):
+def slab_waves(config, scene, device, primary: bool = False,
+               sort: bool = True):
     """Every wave of one batch that K2 builds entries for, uncapped and
     prepared as the tile intersector prepares it: the bounce waves
     ``bounce-1`` up to ``bounce-<max_bounces>`` and a shadow wave a hit
@@ -371,11 +379,13 @@ def slab_waves(config, scene, device, primary: bool = False):
     live; its entries come from the interval mask) first. Returns the
     boxes K2 tests there, as the intersector picks them (the superboxes
     from SC_AUTO_MIN_CLUSTERS clusters on, else the clusters'), and
-    [(label, wave)]."""
+    [(label, wave)]. Without ``sort`` the waves come as the ray sort takes
+    them (capped, unsorted), with the scene box it quantizes origins to
+    (the clusters' union) in place of the boxes."""
     from tpurt_torch.kernels import tilewave as tw
 
     accel, r = _renderer(config, scene, device)
-    prepare = _preparer(accel, sort=True)
+    prepare = _preparer(accel, sort=sort)
     sampler = r.sampler(config.seed, 0)
     state = r.raygen(scene.camera, config.seed, 0)
     waves = []
@@ -390,6 +400,9 @@ def slab_waves(config, scene, device, primary: bool = False):
         state, shadow = r.shade(state, hit, sampler, b)
         if shadow is not None:
             waves.append((f"shadow-{b}", prepare(*shadow[:3])))
+    if not sort:
+        return (accel.cluster_lo.amin(dim=0),
+                accel.cluster_hi.amax(dim=0)), waves
     if accel.cluster_lo.shape[0] >= tw.SC_AUTO_MIN_CLUSTERS:
         return (accel.sc_lo, accel.sc_hi), waves
     return (accel.cluster_lo, accel.cluster_hi), waves
@@ -499,6 +512,119 @@ def k2_live_phase(device) -> dict:
         del waves, lo, hi
         torch.cuda.empty_cache()
     return out
+
+
+# the bytes the ray sort moves a ray: its key and index written; CUB's
+# sort of 22-bit keys with int32 indices, a histogram pass over the keys
+# then three 8-bit digit passes, each reading and writing key and index
+RAYSORT_KEY_OUT_BYTES = 8
+RAYSORT_SORT_BYTES = 4 + 3 * 16
+
+
+def raysort_bytes(n: int, live: int, keep: int, fields: int) -> int:
+    """The least bytes the ray sort's step moves on a wave of ``n`` rays
+    (``live`` with tmax >= 0) that keeps its first ``keep``, restoring
+    ``fields`` outputs: the keys (every tmax, a live ray's origin and
+    direction in, key and index out), the sort, the gather (the
+    permutation, the kept rays' 28 B in and out, the tmax past the cut)
+    and the restore (the permutation, each output in and out)."""
+    return (n * 4 + live * 24 + n * RAYSORT_KEY_OUT_BYTES
+            + n * RAYSORT_SORT_BYTES
+            + n * 4 + keep * 56 + (n - keep) * 4
+            + n * 4 + fields * (keep + n) * 4)
+
+
+def raysort_step(wave, box, out, any_hit: bool, plain: bool):
+    """The tile intersector's sort step on one wave (``_run``): sort and
+    gather the first ``len(out[0])`` rays, then restore the outputs
+    ``out`` of those rays (closest: four; any-hit: bs alone), by the
+    kernels or their plain versions."""
+    from tpurt_torch.kernels import raysort as rs
+
+    org, dirn, _, tmv = wave
+    sort = rs.sort_rays_plain if plain else rs.sort_rays_cuda
+    restore = rs.restore_plain if plain else rs.restore_cuda
+    perm, o, d, t, over = sort(org, dirn, tmv, *box, out[0].shape[0])
+    return (perm, o, d, t, over,
+            *restore(out, perm, org.shape[0], (3,) if any_hit else range(4)))
+
+
+def raysort_phase(device) -> dict:
+    """The ray sort (``csrc/raysort.cu``) against its plain version (the
+    torch ops the step ran before) on every bounce and shadow wave of one
+    bunny batch (800×600 × 8 spp, uncapped, and cut at a cap 5% above
+    each wave's live rays in whole tiles, as a measured cap table cuts
+    it) and of one buddha.accum batch (uncapped): the key kernel's keys
+    equal the plain 32-bit keys, and the permutation, the gathered org,
+    dirn and tmax, the live rays past the cut and the restored outputs
+    are torch.equal. Each side timed (CUDA events, mean of 10), beside
+    the bytes bound (``raysort_bytes``): ``[raysort]`` lines, and the
+    kernel table's record."""
+    import torch
+
+    from tpurt_torch.kernels import raysort as rs
+    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    bunny = get_config("bunny", spp=8, spp_per_batch=8)
+    cases = (("bunny", lambda: (bunny, load_scene(bunny.scene))),
+             ("buddha", buddha_scene))
+    batches = {}
+    for name, make in cases:
+        box, waves = slab_waves(*make(), device, sort=False)
+        for capped in ((False, True) if name == "bunny" else (False,)):
+            tag = f"{name} {'capped' if capped else 'uncapped'}"
+            recs = []
+            for label, wave in waves:
+                org, dirn, _, tmv = wave
+                n, live = org.shape[0], int((tmv >= 0).sum())
+                keep = n
+                if capped:
+                    keep = min(n, -(-int(live * 1.05) // tw.TILE) * tw.TILE)
+                any_hit = label.startswith("shadow")
+                keys = rs.sort_keys_cuda(org, dirn, tmv, *box)[0]
+                key_bad = int((keys != rs.octant_keys32_plain(
+                    org, dirn, tmv, *box)).sum())
+                out = tuple(torch.arange(keep, dtype=torch.float32,
+                                         device=device) + 0.25 * k
+                            for k in range(4))  # made-up kernel outputs
+                run = lambda p: raysort_step(wave, box, out, any_hit, p)
+                bad = key_bad + sum(int((a.to(b.dtype) != b).sum())
+                                    for a, b in zip(run(False), run(True)))
+                ms, plain_ms = cuda_ms(lambda: run(False), 10), \
+                    cuda_ms(lambda: run(True), 10)
+                n_bytes = raysort_bytes(n, live, keep, 1 if any_hit else 4)
+                rec = dict(bound(n_bytes, 0), wave=label, rays=n, live=live,
+                           keep=keep, bytes=n_bytes, ms=ms,
+                           plain_ms=plain_ms, mismatches=bad)
+                recs.append(rec)
+                log(f"[raysort] {tag} {label}: {n} rays, {live} live, keeps "
+                    f"{keep}; {bad} values differ from the plain version "
+                    f"({key_bad} keys); kernels {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms; {n_bytes / n:.1f} B a ray, bound "
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_ms'] / ms:.1%})")
+                if bad:
+                    raise AssertionError(f"ray sort {tag} {label} is not "
+                                         "bit-equal to its plain version")
+            total = {k: sum(r[k] for r in recs)
+                     for k in ("ms", "plain_ms", "bound_ms", "bytes", "rays",
+                               "mismatches")}
+            log(f"[raysort] {tag} batch ({len(recs)} waves): kernels "
+                f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+                f"bound {total['bound_ms']:.4f} ms "
+                f"({total['bound_ms'] / total['ms']:.1%}), "
+                f"{total['bytes'] / total['rays']:.1f} B a ray")
+            batches[tag] = dict(total, waves=recs)
+        del waves
+        torch.cuda.empty_cache()
+    capped = batches["bunny capped"]  # the main path's waves
+    return dict(name="raysort", route="cuda",
+                source="tpurt_torch/csrc/raysort.cu", replaces=None,
+                ms=capped["ms"], plain_ms=capped["plain_ms"],
+                bound_ms=capped["bound_ms"], bound_by="bytes",
+                mismatches=sum(b["mismatches"] for b in batches.values()),
+                batches=batches)
 
 
 def check_k3(label, wave, lo, hi):
@@ -3023,6 +3149,7 @@ def main() -> int:
     # the loop's PyTorch shade
     report = check_kernels(device)
     report.append(shade_phase(device))
+    report.append(raysort_phase(device))
     k2_live = k2_live_phase(device)
 
     # 4. render: each preset's main path, then the goldens

@@ -5,7 +5,7 @@ another checkout, on the waves chip_smoke.py holds them to, on one CUDA
 GPU.
 
     python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell,buddha]
-        [--cases K4,K5] [--variant TAG:kName=V,kName=V ...] [--reps 10]
+        [--cases K4,K5,sort] [--variant TAG:kName=V,kName=V ...] [--reps 10]
         [--out FILE]
 
 DIR is a checkout of the commit to compare with (for example the parent,
@@ -40,6 +40,18 @@ packed nodes: its K5 cases). Prints each build's
 registers and spills (ptxas), the nvidia-smi name and power-limit line
 and a JSON object (also written to ``--out``); exits 1 if any output
 differs.
+
+The ``sort`` cases time the tile intersector's ray sort step
+(``chip_smoke.raysort_step``: keys, sort, gather and restore) on every
+bounce and shadow wave of one bunny batch (uncapped, and cut at caps 5%
+above each wave's live rays) and one buddha.accum batch, as the parent
+ran it (``raysort``'s plain versions: the torch ops the step ran before
+``csrc/raysort.cu``) and as this tree runs it (the kernels), every
+output bit-equal, in the order parent, tree, tree, parent. Where a sort
+case runs, the bunny and buddha scenes (of those in ``--scenes``) are
+also rendered (two batches of 8 spp at their benchmark sizes) by each
+checkout in a process of its own, the parent's with its own kernels,
+and their accumulations must be bit-equal.
 """
 
 from __future__ import annotations
@@ -67,11 +79,15 @@ def build(csrc: str, tag: str, consts: dict | None = None):
     src_dir = os.path.join(BUILD, tag)
     shutil.rmtree(src_dir, ignore_errors=True)
     os.makedirs(src_dir)
-    for name in cuda_build.SOURCES:
+    # the sources this checkout builds that ``csrc`` has (a parent may
+    # predate some)
+    sources = [name for name in cuda_build.SOURCES
+               if os.path.exists(os.path.join(csrc, name))]
+    for name in sources:
         shutil.copy(os.path.join(csrc, name), src_dir)
     for name, value in (consts or {}).items():
         found = 0
-        for src in cuda_build.SOURCES:
+        for src in sources:
             path = os.path.join(src_dir, src)
             with open(path) as f:
                 text = f.read()
@@ -102,6 +118,8 @@ def interfaces(csrc: str) -> dict:
 
     out = {}
     for name in cuda_build.SOURCES:
+        if not os.path.exists(os.path.join(csrc, name)):
+            continue
         with open(os.path.join(csrc, name)) as f:
             text = f.read()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
@@ -241,6 +259,94 @@ def scene_cases(scene: str, device):
                pk.packet_cuda(tables, *w, a))
 
 
+def sort_cases(scene: str, device):
+    """(case name, the parent's sort step, this tree's) on every bounce
+    and shadow wave of one batch of ``scene`` (bunny: uncapped and at caps
+    5% above each wave's live rays; buddha: uncapped)."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+    from tpurt_torch.scene.loader import load_scene
+    from tpurt_torch.utils.config import get_config
+
+    if scene == "buddha":
+        config, host = chip_smoke.buddha_scene()
+    else:
+        config = get_config(scene, spp=8, spp_per_batch=8)
+        host = load_scene(config.scene)
+    box, waves = chip_smoke.slab_waves(config, host, device, sort=False)
+    for capped in ((False, True) if scene == "bunny" else (False,)):
+        for label, wave in waves:
+            keep = wave[0].shape[0]
+            if capped:
+                live = int((wave[3] >= 0).sum())
+                keep = min(keep, -(-int(live * 1.05) // tw.TILE) * tw.TILE)
+            out = tuple(torch.arange(keep, dtype=torch.float32,
+                                     device=device) + 0.25 * k
+                        for k in range(4))
+            step = lambda plain, w=wave, o=out, a=label.startswith("shadow"): \
+                chip_smoke.raysort_step(w, box, o, a, plain)
+            yield (f"sort {scene} {'capped' if capped else 'uncapped'} "
+                   f"{label}", lambda s=step: s(True), lambda s=step: s(False))
+
+
+# two batches of 8 spp of the bunny and buddha scenes rendered by a
+# checkout (the working directory) into .npy accumulations
+RENDER = """
+import sys
+import numpy
+import chip_smoke
+from tpurt_torch.render import render_scene
+from tpurt_torch.scene.loader import load_scene
+from tpurt_torch.utils.config import get_config
+
+out, names = sys.argv[1], sys.argv[2].split(",")
+for name in names:
+    if name == "buddha":
+        config, scene = chip_smoke.buddha_scene()
+    else:
+        config = get_config(name, spp=16, spp_per_batch=8)
+        scene = load_scene(config.scene)
+    img, stats = render_scene(config, device="cuda", scene=scene)
+    numpy.save(f"{out}/{name}.npy", img.accum.cpu().numpy())
+    print(name, stats.get("rays_traced"), stats.get("live_overflow"))
+"""
+
+
+def images_equal(parent: str, names: list) -> dict:
+    """Render ``names`` in the parent checkout and in this one, each in
+    a process of its own; whether each pair of accumulations is
+    bit-equal."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, root in (("parent", os.path.abspath(parent)),
+                          ("tree", ROOT)):
+            os.makedirs(os.path.join(tmp, tag))
+            run = subprocess.run(
+                [sys.executable, "-c", RENDER, os.path.join(tmp, tag),
+                 ",".join(names)], cwd=root, capture_output=True, text=True,
+                env=dict(os.environ, PYTHONPATH=root))
+            log(f"[images] {tag}: rc {run.returncode}; "
+                + " | ".join(run.stdout.split("\n")[-4:]))
+            if run.returncode:
+                raise RuntimeError(f"{tag} render failed:\n"
+                                   f"{run.stderr[-4000:]}")
+        for name in names:
+            a, b = (np.load(os.path.join(tmp, tag, f"{name}.npy"))
+                    for tag in ("parent", "tree"))
+            got[name] = bool(a.shape == b.shape and
+                             np.array_equal(a.view(np.uint32),
+                                            b.view(np.uint32)))
+            log(f"[images] {name}: the tree's accumulation bit-equal to "
+                f"the parent's {got[name]}")
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -291,6 +397,8 @@ def main() -> int:
     wanted = [c for c in args.cases.split(",") if c]
     bad = 0
     for scene in args.scenes.split(","):
+        if wanted == ["sort"]:
+            break
         for name, run, *flags in scene_cases(scene, device):
             if wanted and not any(c in name for c in wanted):
                 continue
@@ -327,6 +435,37 @@ def main() -> int:
             del ref
         torch.cuda.empty_cache()
     cuda_build.activate(libs["tree"])
+    # the sort step: the parent's torch ops (raysort's plain versions)
+    # against this tree's kernels, then the images of both checkouts
+    rendered = []
+    for scene in args.scenes.split(","):
+        if scene not in ("bunny", "buddha"):
+            continue
+        for name, parent, tree in sort_cases(scene, device):
+            if wanted and not any(c in name for c in wanted):
+                continue
+            ref, out = tree(), parent()
+            equal = all(torch.equal(a.to(b.dtype), b)
+                        for a, b in zip(ref, out))
+            bad += not equal
+            ms = {"parent": [], "tree": []}
+            for tag in ("parent", "tree", "tree", "parent"):
+                fn = parent if tag == "parent" else tree
+                fn()
+                ms[tag].append(cuda_ms(fn, args.reps))
+            report["cases"][name] = dict(ms=ms, bit_equal_to_tree=dict(
+                parent=equal))
+            log(f"[paired] {name}: " + "; ".join(
+                f"{tag} " + " / ".join(f"{t:.3f}" for t in ms[tag])
+                for tag in ms) + f" ms; bit-equal to the tree: {equal}")
+            del ref, out
+            if scene not in rendered:
+                rendered.append(scene)
+        torch.cuda.empty_cache()
+    if rendered:
+        images = images_equal(args.parent, rendered)
+        report["images_bit_equal"] = images
+        bad += sum(not v for v in images.values())
     text = json.dumps(report)
     if args.out:
         with open(args.out, "w") as f:

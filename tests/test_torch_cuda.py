@@ -673,3 +673,152 @@ def test_wave_modes_counted_on_graph_replays(cuda_device, monkeypatch):
     render_scene(cfg3, device=cuda_device, scene=scene)
     assert kernels.counts("waves.") == {"waves.sc_rows":
                                         3 * one["waves.sc_rows"]}
+
+
+def _raysort_wave(device, kind, n):
+    """(org, dirn, tmv, lo, hi) on the card: seeded rays around a scene
+    box, a third dead; ``edge`` adds ±0.0 direction components, origins
+    on the box faces, NaN and ±inf origin components on live rays, NaN
+    and −0.0 tmax, and a run of rays with one key."""
+    rng = np.random.default_rng(11)
+    lo, hi = np.float32([-1.0, -0.5, -2.0]), np.float32([3.0, 2.5, 1.0])
+    org = rng.uniform(-3.0, 4.0, size=(n, 3))
+    dirn = rng.normal(size=(n, 3))
+    tmv = np.where(rng.random(n) < 0.33, -1.0, rng.uniform(0.0, 20.0, n))
+    if kind == "edge":
+        dirn[rng.random((n, 3)) < 0.1] = 0.0
+        dirn[rng.random((n, 3)) < 0.1] = -0.0
+        org[:64], org[64:128] = lo, hi
+        org[128:1280], dirn[128:1280] = org[128], dirn[128]
+        for k, v in enumerate((np.nan, np.inf, -np.inf)):
+            rows = rng.permutation(n)[:n // 64]
+            org[rows, k] = v
+            tmv[rows[:n // 128]] = 5.0
+        tmv[rng.permutation(n)[:16]] = np.nan
+        tmv[rng.permutation(n)[:16]] = -0.0
+    elif kind == "all_dead":
+        tmv[:] = -1.0
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    return t(org), t(dirn), t(tmv), t(lo), t(hi)
+
+
+# 3 tiles (CUB's one-block sort) and past a million rays (its onesweep
+# passes)
+RAYSORT_SIZES = [3 * 1024, (1 << 20) + 3 * 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RAYSORT_SIZES, ids=["small", "large"])
+@pytest.mark.parametrize("kind", ["random", "edge", "all_dead"])
+def test_raysort_keys_and_permutation_match_plain(cuda_device, kind, n):
+    """The key kernel's keys equal the plain 32-bit keys computed by
+    torch on the card, and CUB's stable sort of them gives the
+    permutation of the int64 keys' stable torch.sort."""
+    from tpurt_torch.kernels import raysort as rs
+
+    org, dirn, tmv, lo, hi = _raysort_wave(cuda_device, kind, n)
+    before = kernels.launch_counts().get("raysort", 0)
+    keys, perm = rs.sort_keys_cuda(org, dirn, tmv, lo, hi)
+    assert kernels.launch_counts()["raysort"] == before + 1
+    assert torch.equal(keys, rs.octant_keys32_plain(org, dirn, tmv, lo, hi))
+    assert perm.dtype == torch.int32
+    assert torch.equal(perm.long(),
+                       rs.sort_perm_plain(org, dirn, tmv, lo, hi))
+    assert torch.equal(rs.sort_perm(org, dirn, tmv, lo, hi), perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("morton", [False, True], ids=["octant", "morton"])
+@pytest.mark.parametrize("keep", [1.0, 0.998, 0.5],
+                         ids=["uncapped", "dead_cut", "live_cut"])
+def test_raysort_gather_matches_plain(cuda_device, keep, morton):
+    """One gather writes the sorted org, dirn and tmv of the kept rays
+    and counts the live rays past the cut, equal to the plain version's
+    indexing and tail sum: keeping every ray, cutting into the dead tail
+    (a third of the rays are dead) and cutting live rays."""
+    from tpurt_torch.kernels import raysort as rs
+
+    n = RAYSORT_SIZES[1]
+    org, dirn, tmv, lo, hi = _raysort_wave(cuda_device, "edge", n)
+    keep = int(n * keep) // 1024 * 1024
+    got = rs.sort_rays_cuda(org, dirn, tmv, lo, hi, keep, morton)
+    want = rs.sort_rays_plain(org, dirn, tmv, lo, hi, keep, morton)
+    assert torch.equal(got[0].long(), want[0])
+    for g, w in zip(got[1:], want[1:]):  # bit for bit, NaN origins too
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (float(got[4]) > 0) == (keep < n // 2 + 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields,keep", [(4, (0, 1, 2, 3)), (5, range(5)),
+                                         (4, (3,))],
+                         ids=["closest", "two_level", "any_hit"])
+@pytest.mark.parametrize("cut", [0, 2048], ids=["uncapped", "truncated"])
+def test_raysort_restore_matches_plain(cuda_device, fields, keep, cut):
+    """One pass puts the outputs back in the caller's order, the dead-lane
+    values past a truncated wave's cut, equal to the plain version's
+    concatenations and scatters."""
+    from tpurt_torch.kernels import raysort as rs
+
+    n = RAYSORT_SIZES[1]
+    org, dirn, tmv, lo, hi = _raysort_wave(cuda_device, "edge", n)
+    perm = rs.sort_perm(org, dirn, tmv, lo, hi)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    out = tuple(torch.rand(n - cut, generator=gen, device=cuda_device)
+                for _ in range(fields))
+    got = rs.restore_cuda(out, perm, n, keep)
+    want = rs.restore_plain(out, perm.long(), n, keep)
+    for k in range(fields):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("cap", [0, 2 * 1024], ids=["uncapped", "capped"])
+def test_sorted_waves_through_the_raysort_kernels_match_plain(
+        cuda_device, monkeypatch, any_hit, cap):
+    """A bounce or shadow wave through the tile intersector on the card:
+    the ray sort's kernels (one launch each) give the results and stats
+    of its plain version bit for bit, and no 1-D sort, scatter or
+    concatenation of the plain version runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpurt_torch.kernels import raysort as rs
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            t = args[0] if args and isinstance(args[0], torch.Tensor) else None
+            self.seen.append((str(func), None if t is None else t.dim()))
+            return func(*args, **(kwargs or {}))
+
+    w = _standin_wave(cuda_device, 4)
+    kw = (dict(shadow_live_cap=cap) if any_hit else dict(live_cap=cap))
+    closest, occ = tw.make_tile_intersector(None, w["accel"],
+                                            ray_sort="octant", **kw)
+    fn = (occ if any_hit else closest).with_stats
+
+    def run():
+        out, stats = fn(w["org"], w["dirn"], 0.0, w["tmax"])
+        return ((out,) if any_hit else tuple(out)), stats
+
+    kernels.reset_launch_counts()
+    with Ops() as ops:
+        got, got_stats = run()
+    counts = kernels.launch_counts()
+    assert (counts["raysort"], counts["raygather"],
+            counts["rayrestore"]) == (1, 1, 1)
+    assert not [op for op, dim in ops.seen
+                if (op.startswith("aten.sort") and dim == 1)
+                or op.startswith(("aten.index_put", "aten.cat"))]
+    monkeypatch.setattr(rs, "sort_rays_cuda", rs.sort_rays_plain)
+    monkeypatch.setattr(rs, "restore_cuda", rs.restore_plain)
+    want, want_stats = run()
+    assert torch.equal(got_stats, want_stats)
+    assert (float(got_stats[2]) > 0) == (cap > 0)
+    for g, x in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, x)

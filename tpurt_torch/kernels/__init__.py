@@ -9,13 +9,17 @@ launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors. ``shade`` launches the staged loop's shade of a wave
 (``csrc/shade.cu``), whose plain version is the loop's own PyTorch shade
 (``render.staged``), chosen when the renderer is built
-(``shade.shade_path``). ``cuda_build`` compiles the sources with nvcc at
+(``shade.shade_path``). ``raysort`` sorts the tile intersector's bounce
+and shadow waves into octant order and restores their outputs
+(``csrc/raysort.cu``). ``cuda_build`` compiles the sources with nvcc at
 first use.
 
 Every CUDA launcher goes through ``launch``, which counts the launch
 under its key here: ``entries`` (K2), ``exact_mask`` (K3), K1's and K4's
-modes (``tileloop…``, ``tilegrid…``), ``pair`` (K6), ``packet`` (K5) and
-``shade`` (S1); ``KERNELS`` names the device kernel behind each key. The
+modes (``tileloop…``, ``tilegrid…``), ``pair`` (K6), ``packet`` (K5),
+``shade`` (S1) and the ray sort's ``raysort`` (its keys, then CUB's
+sort), ``raygather`` and ``rayrestore``; ``KERNELS`` names the device
+kernel behind each key (the sort's own kernels are CUB's). The
 tile intersector counts its waves here too, by tile mode
 (``waves.<mode>``). A CUDA graph runs no Python on replay, so the staged
 loop's graphs take back what their capture counted (``take_since``: a
@@ -34,7 +38,9 @@ ENTRY_POINTS = {"entries": "tpurt_entries",
                 "exact_mask": "tpurt_exact_mask",
                 "tileloop": "tpurt_tileloop", "tilegrid": "tpurt_tilegrid",
                 "pair": "tpurt_pair_test", "packet": "tpurt_packet",
-                "shade": "tpurt_shade"}
+                "shade": "tpurt_shade", "raysort": "tpurt_raysort",
+                "raygather": "tpurt_raygather",
+                "rayrestore": "tpurt_rayrestore"}
 # the device kernel (tpurt_torch/csrc) behind each launch key: K1's modes
 # (tilewave._variant) and K4's are variants of one template
 KERNELS = {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
@@ -43,9 +49,11 @@ KERNELS = {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
            **{f"tilegrid{tl}{mode}": "tileloop_kernel" for tl in ("", "_tl")
               for mode in ("", "_allpairs")},
            "pair": "pair_kernel", "packet": "packet_kernel",
-           "shade": "shade_kernel"}
+           "shade": "shade_kernel", "raysort": "raysort_keys_kernel",
+           "raygather": "raygather_kernel",
+           "rayrestore": "rayrestore_kernel"}
 # the launch keys that ``launch_counts`` always holds (K1's and K4's modes
-# appear once launched)
+# and the ray sort's appear once launched)
 FIXED = ("entries", "exact_mask", "pair", "packet", "shade")
 
 _COUNTS: dict = {}  # launch keys and "waves.<mode>" since their reset
@@ -123,7 +131,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches since the last reset, by launch key: the ``FIXED`` keys,
-    then K1's and K4's modes that launched, in ``ENTRY_POINTS``' order."""
+    then K1's and K4's modes and the ray sort's keys that launched, in
+    ``ENTRY_POINTS``' order."""
     got = {**dict.fromkeys(FIXED, 0),
            **{k: n for k, n in counts().items() if k in KERNELS}}
     order = list(ENTRY_POINTS)

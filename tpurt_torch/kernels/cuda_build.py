@@ -29,12 +29,34 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("entries.cu", "tileloop.cu", "pairwave.cu", "packet.cu",
-           "shade.cu")
+           "shade.cu", "raysort.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the argument types of every C entry point (each returns a cudaError as
+# int); the stream comes last where there is one
+SIGNATURES = {
+    "tpurt_entries": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p, _p],
+    "tpurt_exact_mask": [_p, _p, _p, _p, _p, _i, _i, _i, _p, _p, _p],
+    "tpurt_slab_rays": [_p, _p],
+    "tpurt_slab_rays_reset": [_p],
+    "tpurt_pair_test": [_p] * 7 + [ctypes.c_long] + [_p] * 5,
+    "tpurt_tileloop": [_p] * 8 + [_i, _i, _f, _i] + [_p] * 9,
+    "tpurt_tilegrid": [_p] * 6 + [_i, _i, _i] + [_p] * 8,
+    "tpurt_packet": [_p, _i, _p, _p, _p, _p, ctypes.c_long, _i] + [_p] * 6,
+    "tpurt_shade": ([_p] * 14 + [_i, _p, _i, _p, _p, _i, _f, _f, _f, _p,
+                                 _p, _p, _i, _i, _i, _f, _f, ctypes.c_long]
+                    + [_p] * 13),
+    "tpurt_raysort_temp_bytes": [_i, ctypes.POINTER(ctypes.c_size_t)],
+    "tpurt_raysort": [_p] * 5 + [_i] + [_p] * 5 + [ctypes.c_size_t, _p],
+    "tpurt_raygather": [_p] * 4 + [_i, _i] + [_p] * 5,
+    "tpurt_rayrestore": [_p, _i, _i] + [_p] * 11,
+}
 
 
 class KernelLibrary:
@@ -46,35 +68,11 @@ class KernelLibrary:
         self.path = path
         self.log = log  # nvcc's output (ptxas register/spill report)
         self.seconds = seconds  # 0.0 when an up-to-date build was reused
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpurt_entries.argtypes = [p, p, p, p, p, i, i, i,
-                                      ctypes.c_float, p, p]
-        lib.tpurt_entries.restype = i
-        lib.tpurt_exact_mask.argtypes = [p, p, p, p, p, i, i, i, p, p, p]
-        lib.tpurt_exact_mask.restype = i
-        lib.tpurt_slab_rays.argtypes = [p, p]
-        lib.tpurt_slab_rays.restype = i
-        lib.tpurt_slab_rays_reset.argtypes = [p]
-        lib.tpurt_slab_rays_reset.restype = i
-        lib.tpurt_pair_test.argtypes = [p, p, p, p, p, p, p, ctypes.c_long,
-                                        p, p, p, p, p]
-        lib.tpurt_pair_test.restype = i
-        lib.tpurt_tileloop.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                       ctypes.c_float, i, p, p, p,
-                                       p, p, p, p, p, p]
-        lib.tpurt_tileloop.restype = i
-        lib.tpurt_tilegrid.argtypes = [p, p, p, p, p, p, i, i, i, p, p,
-                                       p, p, p, p, p, p]
-        lib.tpurt_tilegrid.restype = i
-        lib.tpurt_packet.argtypes = [p, i, p, p, p, p, ctypes.c_long, i,
-                                     p, p, p, p, p, p]
-        lib.tpurt_packet.restype = i
-        f = ctypes.c_float
-        lib.tpurt_shade.argtypes = ([p] * 14 + [i, p, i, p, p, i, f, f, f,
-                                                 p, p, p, i, i, i, f, f,
-                                                 ctypes.c_long]
-                                    + [p] * 13)
-        lib.tpurt_shade.restype = i
+        for name, argtypes in SIGNATURES.items():
+            # another checkout's library (k1_paired.py) may hold fewer
+            entry = getattr(lib, name, None)
+            if entry is not None:
+                entry.argtypes, entry.restype = argtypes, _i
 
 
 _LOADED: list = []  # the process's library once loaded
@@ -122,10 +120,12 @@ def _build(srcs, out: str) -> str:
 
 def build_library(src_dir: str, out: str) -> KernelLibrary:
     """Build the kernel library of the sources in ``src_dir`` (csrc/ or a
-    copy of it, for example another checkout's) into ``out`` and load it,
-    without making it the process's library: ``activate`` does that."""
+    copy of it, for example another checkout's, which may lack some of
+    SOURCES) into ``out`` and load it, without making it the process's
+    library: ``activate`` does that."""
     t0 = time.perf_counter()
-    log = _build([os.path.join(src_dir, s) for s in SOURCES], out)
+    srcs = [os.path.join(src_dir, s) for s in SOURCES]
+    log = _build([s for s in srcs if os.path.exists(s)], out)
     return KernelLibrary(ctypes.CDLL(out), out, log, time.perf_counter() - t0)
 
 

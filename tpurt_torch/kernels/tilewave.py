@@ -7,7 +7,8 @@ keyed by a floor-quantized lower bound of their slab entry distance, and a
 traversal kernel tests the clusters' triangles against the tile's rays:
 
   1. bounce and shadow waves are octant-sorted (direction sign first,
-     origin Morton second) so tiles are coherent, and their entries come
+     origin Morton second; ``raysort``, on the card ``csrc/raysort.cu``)
+     so tiles are coherent, and their entries come
      from the exact per-ray slab reduction (K2 ``exact_entries``, or K3
      ``exact_mask`` unpacked); primary waves keep the screen-tile order
      and take their entries from the conservative interval-frustum mask
@@ -73,7 +74,7 @@ from tpurt_torch import kernels
 from tpurt_torch.bvh.paircluster import ROWS_PER_CLUSTER, SC_SIZE
 from tpurt_torch.core.vecmath import safe_inv_dir as _safe_inv
 from tpurt_torch.kernels.packet import BIG, DEAD_KEY, EPS_DENOM, \
-    _expand_bits7, _quantize, _ray_sort_keys
+    _expand_bits7, _quantize
 from tpurt_torch.render.intersectors import Hit
 from tpurt_torch.utils import profiling
 
@@ -1412,6 +1413,8 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
     closures) says why a wave of ``n`` rays reads the host mid-trace —
     the pair segments and the grid over pairs size their lists by what
     the device found — or "" (all-pairs and entry rows)."""
+    from tpurt_torch.kernels import raysort
+
     del ds
     for s in (ray_sort, shadow_ray_sort):
         if s not in ("none", "morton", "octant", "pre"):
@@ -1536,21 +1539,19 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
             tmv = torch.cat([tmv, torch.full((e,), -1.0, device=dev)])
             n_tiles += extra
         perm = None
-        if sort in ("morton", "octant"):
-            keyfn = _ray_sort_keys if sort == "morton" else _octant_sort_keys
-            with profiling.step("sort"):
-                keys = keyfn(org, dirn, tmv, lo_all, hi_all)
-                perm = torch.sort(keys, stable=True).indices
-                org, dirn, tmv = org[perm], dirn[perm], tmv[perm]
         n_full = n_tiles * TILE
-        if live_trunc and perm is not None:
-            kt = min(n_tiles, -(-int(live_trunc) // TILE))
-            if not one_launch:  # whole launch chunks
-                kt = min(n_tiles, -(-kt // chunk_tiles) * chunk_tiles)
+        if sort in ("morton", "octant"):
+            kt = n_tiles  # the tiles a live-capped wave keeps
+            if live_trunc:
+                kt = min(n_tiles, -(-int(live_trunc) // TILE))
+                if not one_launch:  # whole launch chunks
+                    kt = min(n_tiles, -(-kt // chunk_tiles) * chunk_tiles)
+            with profiling.step("sort"):
+                perm, org, dirn, tmv, over = raysort.sort_rays(
+                    org, dirn, tmv, lo_all, hi_all, kt * TILE,
+                    morton=sort == "morton")
             if kt < n_tiles:
-                live_over = (tmv[kt * TILE:] >= 0.0).sum(dtype=torch.float32)
-                org, dirn, tmv = (org[:kt * TILE], dirn[:kt * TILE],
-                                  tmv[:kt * TILE])
+                live_over = over
                 n_tiles = kt
                 if one_launch:
                     chunk_tiles = kt
@@ -1578,24 +1579,13 @@ def make_tile_intersector(ds, accel, *, pairs_per_tile: int = 0,
                 org, dirn, tmv, lo, hi, tri_rows, scale, chunk_tiles,
                 any_hit=any_hit, exact=exact, tl=tl,
                 pairs_per_tile=pairs_per_tile, pcap=pcap)
-        if out[0].shape[0] < n_full:
-            # truncated wave: the dropped tail gets the kernel's dead-lane
-            # values (bt −1, bu bv 0, bs −1, bi −1) before the un-permute
-            tail = n_full - out[0].shape[0]
-            out = tuple(
-                torch.cat([f, torch.full((tail,), 0.0 if k in (1, 2)
-                                         else -1.0, device=dev)])
-                for k, f in enumerate(out))
         if perm is not None:
-            # un-permute only what the caller reads: any-hit waves only bs
-            keep = (3,) if any_hit else range(len(out))
-            restored = list(out)
+            # un-permute only what the caller reads (any-hit waves only
+            # bs); a truncated wave's dropped tail gets the kernel's
+            # dead-lane values (bt −1, bu bv 0, bs −1, bi −1)
             with profiling.step("sort"):
-                for k in keep:
-                    r = torch.empty_like(out[k])
-                    r[perm] = out[k]
-                    restored[k] = r
-            out = tuple(restored)
+                out = raysort.restore(out, perm, n_full, (3,) if any_hit
+                                      else range(len(out)))
         stats = torch.stack([n_pairs, overflow.to(torch.float32), live_over])
         return tuple(f[:n] for f in out), stats
 

@@ -115,8 +115,9 @@ from tpurt_torch.core.camera import Camera, camera_rays, \
     full_frame_pixels_tiled
 from tpurt_torch.core.prng import TAG_JITTER, PixelSampler
 from tpurt_torch.core.vecmath import dot
+from tpurt_torch.kernels import raysort
 from tpurt_torch.kernels import shade as shade_kernel
-from tpurt_torch.kernels.tilewave import BIG, TILE, _octant_sort_keys
+from tpurt_torch.kernels.tilewave import BIG, TILE
 from tpurt_torch.render.integrator import (
     SHADOW_EPS,
     make_cutout_closest,
@@ -545,9 +546,8 @@ class StagedRenderer:
         origin Morton; dead rays last), every per-ray field along."""
         with profiling.step("sort"):
             tmv = torch.where(state.alive, BIG, -1.0)
-            keys = _octant_sort_keys(state.org, state.dirn, tmv, self.lo_all,
-                                     self.hi_all)
-            perm = torch.sort(keys, stable=True).indices
+            perm = raysort.sort_perm(state.org, state.dirn, tmv,
+                                     self.lo_all, self.hi_all)
             return WaveState(*(f[perm] for f in state[:-1]), rays=state.rays)
 
     def resolve_sorted(self, state: WaveState, tails):

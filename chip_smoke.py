@@ -371,7 +371,7 @@ def batch_waves(name: str, device, spp: int, sort: bool):
 
 
 def slab_waves(config, scene, device, primary: bool = False,
-               sort: bool = True):
+               sort: bool = True, built=None):
     """Every wave of one batch that K2 builds entries for, uncapped and
     prepared as the tile intersector prepares it: the bounce waves
     ``bounce-1`` up to ``bounce-<max_bounces>`` and a shadow wave a hit
@@ -381,10 +381,12 @@ def slab_waves(config, scene, device, primary: bool = False,
     from SC_AUTO_MIN_CLUSTERS clusters on, else the clusters'), and
     [(label, wave)]. Without ``sort`` the waves come as the ray sort takes
     them (capped, unsorted), with the scene box it quantizes origins to
-    (the clusters' union) in place of the boxes."""
+    (the clusters' union) in place of the boxes. ``built``: the (accel,
+    renderer) of ``_renderer`` to use, for a caller that needs the
+    accel too."""
     from tpurt_torch.kernels import tilewave as tw
 
-    accel, r = _renderer(config, scene, device)
+    accel, r = built or _renderer(config, scene, device)
     prepare = _preparer(accel, sort=sort)
     sampler = r.sampler(config.seed, 0)
     state = r.raygen(scene.camera, config.seed, 0)
@@ -408,12 +410,15 @@ def slab_waves(config, scene, device, primary: bool = False,
     return (accel.cluster_lo, accel.cluster_hi), waves
 
 
-def buddha_scene():
-    """buddha.accum's configuration (its traffic's batch) and host scene,
-    from the benchmark's frozen files."""
+def bench_scene(name: str):
+    """The benchmark configuration ``name``'s render configuration (at
+    the accumulation traffic's batch) and host scene, from the
+    benchmark's frozen files: ``buddha`` (buddha.accum's), ``atrium``
+    (atrium.accum's)."""
     from perfbench import program, scenes, traffic
 
-    with open(os.path.join(ROOT, "perfbench", "configs", "buddha.json")) as f:
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{name}.json")) as f:
         cfg = json.load(f)
     mix = traffic.load(ROOT, "accum")
     scene = program.port_scene(scenes.build(cfg["scene"]["builder"],
@@ -494,7 +499,7 @@ def k2_live_phase(device) -> dict:
 
     bunny = get_config("bunny", spp=8, spp_per_batch=8)
     cases = (("bunny", lambda: (bunny, load_scene(bunny.scene))),
-             ("buddha", buddha_scene))
+             ("buddha", lambda: bench_scene("buddha")))
     out = {}
     for name, make in cases:
         (lo, hi), waves = slab_waves(*make(), device)
@@ -569,7 +574,7 @@ def raysort_phase(device) -> dict:
 
     bunny = get_config("bunny", spp=8, spp_per_batch=8)
     cases = (("bunny", lambda: (bunny, load_scene(bunny.scene))),
-             ("buddha", buddha_scene))
+             ("buddha", lambda: bench_scene("buddha")))
     batches = {}
     for name, make in cases:
         box, waves = slab_waves(*make(), device, sort=False)

@@ -4,7 +4,8 @@ the entry build and exact mask (K2, K3) of this checkout against those of
 another checkout, on the waves chip_smoke.py holds them to, on one CUDA
 GPU.
 
-    python3 k1_paired.py --parent DIR [--scenes bunny,sponza,cornell,buddha]
+    python3 k1_paired.py --parent DIR
+        [--scenes bunny,sponza,cornell,buddha,atrium]
         [--cases K4,K5,sort] [--variant TAG:kName=V,kName=V ...] [--reps 10]
         [--out FILE]
 
@@ -26,7 +27,9 @@ through its packet BVH; K2 on the primary (every ray live), bounce and
 shadow waves of an uncapped bunny batch (cluster boxes) and buddha.accum
 batch (``buddha``: perfbench's frozen scene, superboxes), as
 chip_smoke.slab_waves gives them, and K3 on their ``bounce-1`` and
-``shadow-0`` waves — whose name holds one of ``--cases`` (every case
+``shadow-0`` waves; K1 two-level + sc on every bounce and shadow wave of
+an uncapped atrium.accum batch (``atrium``: perfbench's frozen instanced
+scene at the cell's frame) — whose name holds one of ``--cases`` (every case
 by default), it checks every output of every other build bit-equal to
 this checkout's (K5: its group counters too; K4 any-hit: the occlusion
 flags), then times each build by CUDA events (mean of ``--reps``
@@ -135,7 +138,7 @@ def slab_cases(scene: str, device):
     from tpurt_torch.utils.config import get_config
 
     if scene == "buddha":
-        config, host = chip_smoke.buddha_scene()
+        config, host = chip_smoke.bench_scene("buddha")
     else:
         config = get_config(scene, spp=8, spp_per_batch=8)
         host = load_scene(config.scene)
@@ -152,6 +155,35 @@ def slab_cases(scene: str, device):
                    tw.exact_mask_cuda(o, iv, t, lo, hi))
 
 
+def atrium_cases(device):
+    """K1 two-level + sc on every bounce (closest) and shadow (lean
+    any-hit) wave of one uncapped atrium.accum batch (perfbench's frozen
+    scene at the cell's 1920 x 1080 x 8 spp), over the entry rows K2
+    builds from its per-instance superboxes, as the tile intersector
+    takes them."""
+    import torch
+
+    from tpurt_torch.kernels import tilewave as tw
+
+    config, host = chip_smoke.bench_scene("atrium")
+    built = chip_smoke._renderer(config, host, device)
+    (lo, hi), waves = chip_smoke.slab_waves(config, host, device,
+                                            built=built)
+    accel = built[0]
+    tl = dict(pair_meta=accel.pair_meta, inv_xform=accel.inv_xform,
+              sc_meta=accel.sc_meta)
+    scale = tw.tn_scale_of(lo.cpu().numpy(), hi.cpu().numpy())
+    for label, wave in waves:
+        org, _, inv_d, tmv = wave
+        entry = torch.sort(tw.entries_cuda(org, inv_d, tmv, lo, hi, scale),
+                           dim=1).values
+        counts = (entry != tw.INT32_MAX).sum(dim=1, dtype=torch.int32)
+        yield (f"K1 sc atrium {label}",
+               lambda w=wave, e=entry, c=counts,
+               a=label.startswith("shadow"):
+               tw.tileloop_cuda(*w, accel.tri_rows, e, c, scale, a, **tl))
+
+
 def scene_cases(scene: str, device):
     """(case name, closure launching the kernel on the case's inputs[,
     flags]) for every case of ``scene``, built from the same waves as
@@ -166,6 +198,9 @@ def scene_cases(scene: str, device):
     from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.utils.config import get_config
 
+    if scene == "atrium":
+        yield from atrium_cases(device)
+        return
     if scene in ("bunny", "buddha"):
         yield from slab_cases(scene, device)
         if scene == "buddha":
@@ -270,7 +305,7 @@ def sort_cases(scene: str, device):
     from tpurt_torch.utils.config import get_config
 
     if scene == "buddha":
-        config, host = chip_smoke.buddha_scene()
+        config, host = chip_smoke.bench_scene("buddha")
     else:
         config = get_config(scene, spp=8, spp_per_batch=8)
         host = load_scene(config.scene)
@@ -303,7 +338,7 @@ from tpurt_torch.utils.config import get_config
 out, names = sys.argv[1], sys.argv[2].split(",")
 for name in names:
     if name == "buddha":
-        config, scene = chip_smoke.buddha_scene()
+        config, scene = chip_smoke.bench_scene("buddha")
     else:
         config = get_config(name, spp=16, spp_per_batch=8)
         scene = load_scene(config.scene)

@@ -29,9 +29,12 @@ as perfbench's own metrics are:
     split is right);
   * ``accel_build_s``: the ``accel.build`` spans of set-up;
   * ``accel``: the program's record of that build (its phases' seconds
-    and its triangle, cluster, supercluster and byte counts) and
-    ``wave_modes``: the run's waves by tile mode (``sc_rows``,
-    ``cluster_rows``, ...), both kept with the recorder off too;
+    and its triangle, cluster, supercluster, byte, instance and stored
+    triangle counts), ``wave_modes``: the run's waves by tile mode
+    (``sc_rows``, ``cluster_rows``, ...), and ``launches``: the launch
+    counts since the harness last reset them (under ``--trace 1``, the
+    traced stretch's), with ``shade.plain`` for the waves the PyTorch
+    shade shaded; all kept with the recorder off too;
   * ``slab_rays``: the ray slots K2 (``entries``) and K3
     (``exact_mask``) were launched over, the live rays among them and
     the live share, counted on the card since the harness last reset the
@@ -154,6 +157,7 @@ def main(argv) -> int:
     out["accel"] = render.accel_build_record()
     out["wave_modes"] = {k[len("waves."):]: n
                          for k, n in kernels.counts("waves.").items()}
+    out["launches"] = kernels.launch_counts()
     # [slots, live rays, live share] by kernel
     out["slab_rays"] = {k: [n, live, live / n if n else None]
                         for k, (n, live) in tilewave.slab_ray_counts().items()}

@@ -189,6 +189,9 @@ def test_buddha_accel_record_and_counters():
     assert rec["kind"] == "PairAccel" and n_tris == 20006
     assert (rec["triangles"], rec["clusters"], rec["superclusters"]) == \
         (n_tris, -(-n_tris // 96), -(-(-(-n_tris // 96)) // 8))
+    # a flat accel holds every instance's triangles
+    assert (rec["instances"], rec["stored_triangles"]) == \
+        (len(scene.instances), n_tris)
     assert rec["bytes"] == sum(t.numel() * t.element_size() for t in accel
                                if t is not None)
     assert set(rec["seconds"]) == {"build", "order", "pack", "shade_rows"}
@@ -196,7 +199,8 @@ def test_buddha_accel_record_and_counters():
     assert sum(rec["seconds"][k] for k in ("order", "pack", "shade_rows")) \
         <= rec["seconds"]["build"]
     r = profiling.records()
-    for k in ("triangles", "clusters", "superclusters", "bytes"):
+    for k in ("triangles", "clusters", "superclusters", "bytes",
+              "instances", "stored_triangles"):
         assert r["counts"]["accel." + k] == rec[k]
     assert r["counts"]["waves.cluster_rows"] >= 3
     spans = r["spans"]

@@ -112,6 +112,8 @@ def test_span_names_and_nesting(recorder):
     assert rec["counts"] == {"accel.triangles": 1286, "accel.clusters": 14,
                              "accel.superclusters": 2,
                              "accel.bytes": rd.accel_build_record()["bytes"],
+                             "accel.instances": 4,
+                             "accel.stored_triangles": 1286,
                              "waves.cluster_rows": 4 * 6}
 
 

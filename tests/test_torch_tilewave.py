@@ -282,6 +282,9 @@ def test_launchers_reject_cpu_tensors(bunny, loop_inputs):
     t = torch.from_numpy
     org, d, tm = t(li["org"]), t(li["d"]), t(li["tmax"])
     acc = bunny["p_accel"]
+    # from here on (a CPU render earlier in the process counts its
+    # PyTorch shade's waves beside the launches, as shade.plain)
+    kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         tw.entries_cuda(org, tw._safe_inv(d), tm, acc.cluster_lo,
                         acc.cluster_hi, li["scale"])

@@ -21,9 +21,11 @@ modes (``tileloop…``, ``tilegrid…``), ``pair`` (K6), ``packet`` (K5),
 sort), ``raygather`` and ``rayrestore``; ``KERNELS`` names the device
 kernel behind each key (the sort's own kernels are CUB's). The
 tile intersector counts its waves here too, by tile mode
-(``waves.<mode>``). A CUDA graph runs no Python on replay, so the staged
-loop's graphs take back what their capture counted (``take_since``: a
-capture launches nothing) and add it again on every replay (``add``);
+(``waves.<mode>``), and the staged loop each wave its PyTorch shade
+shades (``shade.plain``, on the CPU and the card alike). A CUDA graph
+runs no Python on replay, so the staged loop's graphs take back what
+their capture counted (``take_since``: a capture launches nothing) and
+add it again on every replay (``add``);
 ``chip_smoke.py`` holds each graph's count to the kernel nodes that
 libcuda holds for it.
 """
@@ -55,6 +57,9 @@ KERNELS = {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
 # the launch keys that ``launch_counts`` always holds (K1's and K4's modes
 # and the ray sort's appear once launched)
 FIXED = ("entries", "exact_mask", "pair", "packet", "shade")
+# counted beside the launches where the PyTorch code does a kernel's work:
+# a wave that the staged loop's PyTorch shade shades (render/staged.py)
+PLAIN = ("shade.plain",)
 
 _COUNTS: dict = {}  # launch keys and "waves.<mode>" since their reset
 
@@ -120,21 +125,23 @@ def launch(key: str, device, *args, work: bool) -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch counter, and K2's and K3's ray counters
-    on the card (``tilewave.slab_ray_counts``)."""
+    """Zero every kernel's launch counter and the ``PLAIN`` counts, and
+    K2's and K3's ray counters on the card
+    (``tilewave.slab_ray_counts``)."""
     from tpurt_torch.kernels import tilewave
 
     tilewave._slab_rays(reset=True)
-    for k in KERNELS:
+    for k in (*KERNELS, *PLAIN):
         _COUNTS.pop(k, None)
 
 
 def launch_counts() -> dict:
     """Launches since the last reset, by launch key: the ``FIXED`` keys,
-    then K1's and K4's modes and the ray sort's keys that launched, in
-    ``ENTRY_POINTS``' order."""
+    then K1's and K4's modes, the ray sort's keys and the ``PLAIN``
+    counts that moved, in ``ENTRY_POINTS``' order."""
     got = {**dict.fromkeys(FIXED, 0),
-           **{k: n for k, n in counts().items() if k in KERNELS}}
+           **{k: n for k, n in counts().items()
+              if k in KERNELS or k in PLAIN}}
     order = list(ENTRY_POINTS)
     return dict(sorted(got.items(),
                        key=lambda kv: order.index(_kernel_name(kv[0]))))

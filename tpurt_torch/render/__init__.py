@@ -159,28 +159,36 @@ def accel_build_record() -> dict:
     force), ``seconds`` (``build``: the whole build with its upload, and
     a pair-cluster build's phases ``order``, ``pack`` and ``shade_rows``,
     ``bvh.paircluster.last_build_phases``), and the counts
-    ``triangles`` (after instancing), ``clusters``, ``superclusters``
-    (0 where the accel has none) and ``bytes`` (its tables). Empty
-    before the first build. While recording, the counts are also the
-    counters ``accel.<count>``."""
+    ``triangles`` (after instancing), ``clusters`` (a pair-cluster
+    accel's cluster entries: instance-clusters on the two-level one),
+    ``superclusters`` (0 where the accel has none), ``bytes`` (its
+    tables), ``instances`` and ``stored_triangles`` (those the accel
+    holds: each mesh's once in a two-level accel, every instance's in a
+    flat one). Empty before the first build. While recording, the counts
+    are also the counters ``accel.<count>``."""
     return {k: dict(v) if isinstance(v, dict) else v
             for k, v in _ACCEL_RECORD.items()}
 
 
 def _record_accel_build(accel, meta, seconds: float) -> None:
     from tpurt_torch.bvh import paircluster
+    from tpurt_torch.bvh.two_level import SceneAccel
 
     tables = [] if accel is None else [a for a in accel
                                        if isinstance(a, torch.Tensor)]
     pair = isinstance(accel, (paircluster.PairAccel,
                               paircluster.PairAccelTL))
     sc = getattr(accel, "sc_meta", None)
+    instanced = sum(meta.mesh_tri_ranges[m][1] for m in meta.inst_mesh)
+    two_level = isinstance(accel, (paircluster.PairAccelTL, SceneAccel))
     counts = {
-        "triangles": sum(meta.mesh_tri_ranges[m][1]
-                         for m in meta.inst_mesh),
+        "triangles": instanced,
         "clusters": int(accel.cluster_lo.shape[0]) if pair else 0,
         "superclusters": int(sc.shape[0]) if pair and sc is not None else 0,
         "bytes": sum(t.numel() * t.element_size() for t in tables),
+        "instances": len(meta.inst_mesh),
+        "stored_triangles": (sum(n for _, n in meta.mesh_tri_ranges)
+                             if two_level else instanced),
     }
     _ACCEL_RECORD.clear()
     _ACCEL_RECORD.update(

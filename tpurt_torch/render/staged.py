@@ -420,7 +420,9 @@ class StagedRenderer:
         PixelSampler, or None for the batch's own streams (the input
         buffers' seed and first sample, each ray's sample and pixel).
         On the ``shade_path`` "cuda" one kernel shades the wave and
-        hashes the streams itself."""
+        hashes the streams itself (launch key ``shade``); else the
+        PyTorch code does, counted as ``shade.plain`` beside the
+        launches."""
         with profiling.step("shade"):
             if self.shade_path == "cuda":
                 c = self.config
@@ -430,6 +432,7 @@ class StagedRenderer:
                     shadow_eps=SHADOW_EPS, seed=self.seed_buf,
                     sample0=self.sample0_buf,
                     base=None if sampler is None else sampler.base)
+            kernels.count("shade.plain")
             if sampler is None:
                 sampler = PixelSampler.make(
                     self.seed_buf, self.sample0_buf + state.sample,

@@ -1488,16 +1488,22 @@ def check_kernels(device) -> list:
 # contribution (12) and want (1). A shade record (32 f32) is read once for
 # each record the wave's hits reach. Its operations (a few hundred a hit)
 # take under a third of the bytes' time at the f32 rate: bytes bound it.
+# The two-level instantiation also reads the hit's instance (4) and an
+# instance row (24 f32) once for each instance the wave's rays reach.
 SHADE_IN_BYTES = 4 * 12 + 2 + 2 * 8 + 3 * 4 + 4 + 1
 SHADE_OUT_BYTES = 4 * 12 + 2 + 2 * 12 + 4 + 12 + 1
 SHADE_ROW_BYTES = 32 * 4
+SHADE_INST_BYTES, SHADE_INST_ROW_BYTES = 4, 24 * 4
 SHADE_REL, SHADE_ABS = 1e-5, 1e-6  # tests/test_torch_shade.py
 
 
-def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
+def shade_phase(device, name: str = "bunny", spp: int = 8,
+                **over) -> dict:
     """S1 on the three waves of one batch of the preset (the primary
     wave, then each bounce wave as the staged loop hands it over, at the
-    preset's size): the kernel alone, mean of 10 launches by CUDA events,
+    preset's size, with the config overrides ``over``; on a two-level
+    accel its two-level instantiation, launch key ``shade_tl``): the
+    kernel alone, mean of 10 launches by CUDA events,
     against the loop's PyTorch shade (``_shade`` with the batch's
     PixelSampler made: the same function in PyTorch's kernels, its
     ``library_ms``), held to it as ``tests/test_torch_shade.py`` holds
@@ -1513,7 +1519,7 @@ def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
     from tpurt_torch.scene.loader import load_scene
     from tpurt_torch.utils.config import get_config
 
-    config = get_config(name, spp=spp, spp_per_batch=spp)
+    config = get_config(name, spp=spp, spp_per_batch=spp, **over)
     scene = load_scene(config.scene)
     meta = scene_meta(scene)
     ds = to_device(scene, device=device)
@@ -1522,6 +1528,8 @@ def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
     if r.shade_path != "cuda":
         raise AssertionError(f"{name}: shade path {r.shade_path} "
                              f"({r.shade_reason})")
+    two_level = r.shade_tables.inst_table is not None
+    key = "shade_tl" if two_level else "shade"
     r.set_inputs(scene.camera, config.seed, 0)
     state = r.raygen(r.camera(), r.seed_buf, r.sample0_buf)
     waves = []
@@ -1538,6 +1546,9 @@ def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
         rows = int(torch.unique(hit.slot[hv]).numel())
         n_bytes = n * (SHADE_IN_BYTES + SHADE_OUT_BYTES) + rows * \
             SHADE_ROW_BYTES
+        if two_level:
+            insts = int(torch.unique(hit.inst.clamp_min(0)).numel())
+            n_bytes += n * SHADE_INST_BYTES + insts * SHADE_INST_ROW_BYTES
         masks = [(got[0].alive, want[0].alive),
                  (got[0].allow_emission, want[0].allow_emission),
                  (got[0].rays, want[0].rays)]
@@ -1565,7 +1576,7 @@ def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
                    share_within=share, max_abs_err=max_err)
         waves.append(rec)
         log(f"[shade] {name} wave {bounce}: {n} rays, {rec['hits']} hits on "
-            f"{rows} records; {n_bytes} B; S1 {ms:.4f} ms, the PyTorch "
+            f"{rows} records; {n_bytes} B; S1 {key} {ms:.4f} ms, the PyTorch "
             f"shade {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}); masks and "
             f"counters differ in {bad}, floats held on {share:.6f} of rays "
@@ -1577,10 +1588,10 @@ def shade_phase(device, name: str = "bunny", spp: int = 8) -> dict:
         if shadow is not None:
             state = r.occlude(state, shadow, bounce)
     total = lambda k: sum(w[k] for w in waves)
-    log(f"[shade] {name} batch: S1 {total('ms'):.4f} ms, the PyTorch shade "
-        f"{total('library_ms'):.4f} ms, bound {total('bound_ms'):.4f} ms "
-        f"({total('bound_ms') / total('ms'):.1%})")
-    return dict(name="shade", route="cuda", source="tpurt_torch/csrc/shade.cu",
+    log(f"[shade] {name} batch: S1 {key} {total('ms'):.4f} ms, the PyTorch "
+        f"shade {total('library_ms'):.4f} ms, bound "
+        f"{total('bound_ms'):.4f} ms ({total('bound_ms') / total('ms'):.1%})")
+    return dict(name=key, route="cuda", source="tpurt_torch/csrc/shade.cu",
                 replaces=None, max_abs_err=max(w["max_abs_err"]
                                                for w in waves),
                 ms=total("ms"), plain_ms=None, library_ms=total("library_ms"),
@@ -1605,13 +1616,14 @@ def golden_configs() -> dict:
 # environment switches set around its renders, the kernels it must launch)
 PATHS = {
     "bunny": ("bunny", 8, None, {}, {}, ("entries", "tileloop", "shade")),
-    "sponza": ("sponza", 2, None, {}, {}, ("entries", "tileloop_tl_sc")),
+    "sponza": ("sponza", 2, None, {}, {}, ("entries", "tileloop_tl_sc",
+                                           "shade_tl")),
     "cornell": ("cornell", 16, None, {}, {}, ("tileloop_allpairs",
                                               "shade")),
     "hello_triangle": ("hello_triangle", 1, None, {}, {},
                        ("tileloop_allpairs",)),
     "sponza_small": ("sponza", 2, (8, 3), {}, {},
-                     ("entries", "tileloop_tl")),
+                     ("entries", "tileloop_tl", "shade_tl")),
     "bunny_budget": ("bunny", 8, None, dict(pairs_per_tile=256), {},
                      ("exact_mask", "tileloop")),
     "bunny_pair": ("bunny", 8, None, dict(intersector="bvh_pair"), {},
@@ -1740,20 +1752,22 @@ def by_device_kernel(counts: dict) -> dict:
 
 
 def kernel_of_symbol(symbol: str):
-    """The ``kernels.KERNELS`` name of a mangled kernel symbol
-    (slab_kernel split by its template argument), or None for another
-    kernel."""
+    """The ``kernels.KERNELS`` name of a mangled kernel symbol (slab_kernel
+    and shade_kernel split by their bool template argument), or None for
+    another kernel."""
     import re
 
     from tpurt_torch.kernels import KERNELS
 
     names = sorted({k.split("<")[0] for k in KERNELS.values()})
+    split = {k.split("<")[0] for k in KERNELS.values()
+             if k.endswith(("<true>", "<false>"))}
     m = re.search(r"\d(" + "|".join(names) + r")(ILb[01]E)?", symbol)
     if m is None:
         return None
-    if m.group(1) == "slab_kernel":
-        return "slab_kernel" + ("<true>" if m.group(2) == "ILb1E"
-                                else "<false>")
+    if m.group(1) in split:
+        return m.group(1) + ("<true>" if m.group(2) == "ILb1E"
+                             else "<false>")
     return m.group(1)
 
 
@@ -3154,6 +3168,10 @@ def main() -> int:
     # the loop's PyTorch shade
     report = check_kernels(device)
     report.append(shade_phase(device))
+    # the two-level instantiation on sponza's 16.6 M-ray waves (1080p at
+    # 8 spp a batch, as atrium.accum's)
+    report.append(shade_phase(device, "sponza", 8,
+                              max_rays_per_batch=16 << 20))
     report.append(raysort_phase(device))
     k2_live = k2_live_phase(device)
 

@@ -460,14 +460,14 @@ def test_launch_counts_its_key_once_when_it_had_work(monkeypatch, key, entry,
 
 
 def _launch_keys():
-    """Every launch key the launchers can count: K2, K3, K6, K5 and S1,
-    K1's modes (``tilewave._variant``), K4's names (tilegrid_cuda) and
-    the ray sort's three (``kernels.raysort``)."""
+    """Every launch key the launchers can count: K2, K3, K6, K5, S1 (flat
+    and two-level), K1's modes (``tilewave._variant``), K4's names
+    (tilegrid_cuda) and the ray sort's three (``kernels.raysort``)."""
     k1 = {tw._variant(pm, sc, scale, seg) for pm in (None, 1)
           for sc in (None, 1) for scale in (0.0, 1.0) for seg in (False, True)}
     k4 = {"tilegrid" + tl + ap for tl in ("", "_tl")
           for ap in ("", "_allpairs")}
-    return ["entries", "exact_mask", "pair", "packet", "shade",
+    return ["entries", "exact_mask", "pair", "packet", "shade", "shade_tl",
             *sorted(k1), *sorted(k4), "raysort", "raygather", "rayrestore"]
 
 

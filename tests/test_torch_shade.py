@@ -11,15 +11,19 @@ path) on made-up waves of every material family (Lambert, Blinn-Phong,
 mirror with and without fuzz, dielectric front and back with total
 internal reflection), emissive hits, misses, dead rays, both
 ``allow_emission`` values, NEE on and off, every bounce up to
-``max_bounces`` and a nearest-textured record: the masks and counters
+``max_bounces`` and a nearest-textured record, and the same on the
+two-level instantiation (object-space records through an instance
+table: material overrides, one emissive, a mirrored instance, misses
+at instance −1 with an override on instance 0, a textured mesh with an
+overridden instance): the masks and counters
 equal, the floats within 1e-5 relative and 1e-6 absolute on at least
 99.9% of rays (the kernel repeats the PyTorch path's f32 operations in
 its order, that of torch's CUDA sums included, and came out bit-equal on
 an H100; the tolerance leaves another torch build room to sum
 otherwise); on a Lambert wave whose normal is +z the next directions are
-bit-equal, so the draws are PixelSampler's bits. Bunny
-and Cornell renders with graphs on hold the kernel path to the PyTorch
-path by the benchmark's accumulation check (``perfbench/check.py``:
+bit-equal, so the draws are PixelSampler's bits. Bunny,
+Cornell and two-level sponza renders with graphs on hold the kernel path
+to the PyTorch path by the benchmark's accumulation check (``perfbench/check.py``:
 channels off by over 1e-4 relative, 1e-6 absolute; at most 5% of them).
 
 This file imports neither jax nor tpurt: the card tests run where only
@@ -42,7 +46,8 @@ from tpurt_torch.render import build_accel, render_scene, scene_meta
 from tpurt_torch.render.intersectors import Hit
 from tpurt_torch.render.staged import StagedRenderer, WaveState
 from tpurt_torch.scene.device import to_device
-from tpurt_torch.scene.procedural import bunny_standin, cornell_box
+from tpurt_torch.scene.procedural import (bunny_standin, cornell_box,
+                                          sponza_standin)
 from tpurt_torch.scene.types import BLINN_PHONG, DIELECTRIC, LAMBERT, MIRROR
 from tpurt_torch.utils.config import get_config
 
@@ -84,7 +89,9 @@ def _textured(ds):
     ("flat_accel_nearest_textures", "cuda", ""),
     ("flat_accel_bilinear_untextured", "cuda", ""),
     ("cpu", "plain", "the CPU"),
-    ("two_level", "plain", "a two-level accel"),
+    ("two_level", "cuda", ""),
+    ("two_level_bilinear_textures", "plain", "bilinear textures"),
+    ("two_level_cpu", "plain", "the CPU"),
     ("packet", "plain", "no shade records"),
     ("bilinear_textures", "plain", "bilinear textures"),
     ("flat_shading", "plain", "flat shading"),
@@ -93,26 +100,32 @@ def test_shade_path_rule(bunny, case, path, reason):
     """Which accel, texture filter, shading mode and device give the
     kernel path, and the reason of each plain one."""
     over, device = {}, CUDA
-    if case == "two_level":
+    if case.startswith("two_level"):
         over = dict(instancing="two_level")
-    elif case == "packet":
+    if case == "packet":
         over = dict(intersector="bvh_packet")
-    elif case in ("bilinear_textures", "flat_accel_bilinear_untextured"):
-        over = dict(texture_filter="bilinear")
+    elif case.endswith("bilinear_textures") or \
+            case == "flat_accel_bilinear_untextured":
+        over = dict(over, texture_filter="bilinear")
     elif case == "flat_shading":
         over = dict(shading_mode="flat")
-    elif case == "cpu":
+    elif case.endswith("cpu"):
         device = "cpu"
     cfg, ds, meta, accel = _context(bunny, **over)
-    if case in ("flat_accel_nearest_textures", "bilinear_textures"):
+    two_level = getattr(accel, "inst_table", None) is not None
+    assert two_level == case.startswith("two_level")
+    if case in ("flat_accel_nearest_textures", "bilinear_textures",
+                "two_level_bilinear_textures"):
         ds = _textured(ds)
     got, why = sk.shade_path(ds, accel, cfg, device)
     assert got == path
     assert why.startswith(reason) and (why == "") == (path == "cuda")
 
 
-def test_renderer_records_its_shade_path_on_the_cpu(bunny):
-    cfg, ds, meta, accel = _context(bunny)
+@pytest.mark.parametrize("instancing", ["auto", "two_level"],
+                         ids=["flat", "two_level"])
+def test_renderer_records_its_shade_path_on_the_cpu(bunny, instancing):
+    cfg, ds, meta, accel = _context(bunny, instancing=instancing)
     r = StagedRenderer(ds, accel, meta=meta, config=cfg, device="cpu")
     assert (r.shade_path, r.shade_tables) == ("plain", None)
     assert r.shade_reason == sk.shade_path(ds, accel, cfg, "cpu")[1] != ""
@@ -144,6 +157,25 @@ def test_shade_tables_pack_the_scene(bunny, textured):
         assert torch.equal(t.tex_meta, ds.tex_meta)
     else:
         assert t.tex_data is None and t.tex_meta is None
+
+
+@pytest.mark.parametrize("instancing", ["auto", "two_level"],
+                         ids=["flat", "two_level"])
+def test_shade_tables_pack_the_instance_table(bunny, instancing):
+    """The two-level accel's instance rows go to the kernel as they are:
+    (I, 24) f32, contiguous, 16-byte aligned (read as float4 rows); the
+    flat accel has none."""
+    cfg, ds, meta, accel = _context(bunny, instancing=instancing)
+    t = sk.shade_tables(ds, accel)
+    if instancing == "auto":
+        assert getattr(accel, "inst_table", None) is None
+        assert t.inst_table is None
+        return
+    it = t.inst_table
+    assert it.dtype == torch.float32 and it.is_contiguous()
+    assert it.shape == (accel.inst_table.shape[0], 24) and it.shape[0] >= 1
+    assert it.data_ptr() % 16 == 0
+    assert torch.equal(it, accel.inst_table)
 
 
 @pytest.mark.parametrize("over", [{}, dict(sorted_wave=True),
@@ -262,11 +294,47 @@ def made_up_wave(r, n: int, n_rows: int, gen, flat_z=False):
             Hit(*(to(f) for f in hit)))
 
 
-def use_records(r, rec, ds=None, **config):
+N_INST = 6
+
+
+def made_up_inst_table(gen):
+    """(N_INST, 24) instance rows (``PairAccelTL.inst_table``): normal
+    matrices near the identity; instance 1 mirrored (det sign −1);
+    material overrides on instance 0 (a fuzzy mirror, so a miss, which
+    resolves at instance 0, takes a specular kind), 2 (an emissive
+    Lambert) and 4 (Blinn-Phong); the rest keep their records'
+    materials."""
+    table = torch.zeros((N_INST, 24))
+    nm = torch.eye(3) + 0.3 * torch.randn((N_INST, 3, 3), generator=gen)
+    nm[1] = nm[1] @ torch.diag(torch.tensor([-1.0, 1.0, 1.0]))
+    table[:, 0:9] = nm.reshape(N_INST, 9)
+    table[:, 9] = torch.sign(torch.linalg.det(nm))
+    assert table[1, 9] == -1.0 and (table[:, 9] != 0).all()
+    for i, kind, albedo, emission, p0, p1 in (
+            (0, MIRROR, (0.9, 0.8, 0.7), (0.0, 0.0, 0.0), 0.1, 0.0),
+            (2, LAMBERT, (0.3, 0.6, 0.2), (4.0, 3.0, 2.0), 0.0, 0.0),
+            (4, BLINN_PHONG, (0.5, 0.5, 0.8), (0.0, 0.0, 0.0), 40.0, 0.6)):
+        table[i, 10:21] = torch.tensor([1.0, float(kind), *albedo,
+                                        *emission, p0, p1, float(kind)])
+    return table
+
+
+def with_instances(hit, gen):
+    """``hit`` with every hit's instance drawn from the table's and −1 on
+    every miss, as the two-level intersector gives them."""
+    inst = torch.randint(0, N_INST, hit.valid.shape, generator=gen)
+    inst = torch.where(hit.valid.cpu(), inst, -1).to(torch.int32)
+    return hit._replace(inst=inst.to(hit.valid.device))
+
+
+def use_records(r, rec, ds=None, inst_table=None, **config):
     """Point both of ``r``'s shade paths at the records ``rec`` (and the
-    scene ``ds``, and config changes such as ``use_nee``)."""
+    scene ``ds``, an instance table, which makes the records object
+    space, and config changes such as ``use_nee``)."""
     ds = r.ds if ds is None else ds
-    accel = types.SimpleNamespace(shade_rows=rec.to(r.device))
+    accel = types.SimpleNamespace(
+        shade_rows=rec.to(r.device),
+        inst_table=None if inst_table is None else inst_table.to(r.device))
     r.ds = ds
     r.config = dataclasses.replace(r.config, **config)
     r.resolver = materials.make_resolver(
@@ -406,6 +474,60 @@ def test_shade_kernel_draws_are_pixel_sampler_bits(cuda_renderer):
     assert torch.equal(g.dirn, w.dirn)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [True, False], ids=["nee", "no_nee"])
+@pytest.mark.parametrize("bounce", [0, 2])
+@pytest.mark.parametrize("family", ["mixed", "blinn_phong", "dielectric"])
+def test_two_level_shade_kernel_matches_pytorch(cuda_renderer, family,
+                                                bounce, nee):
+    """S1's two-level instantiation against ``_shade`` on the two-level
+    resolve: overridden, emissive and mirrored instances, misses at
+    instance −1 whose kind comes from instance 0's override."""
+    r = cuda_renderer
+    gen = torch.Generator().manual_seed(300 + 10 * bounce + len(family))
+    table = made_up_inst_table(gen)
+    use_records(r, made_up_records(family, 61, gen), inst_table=table,
+                use_nee=nee)
+    state, hit = made_up_wave(r, N_RAYS, 61, gen)
+    hit = with_instances(hit, gen)
+    kernels.reset_launch_counts()
+    got, want = shade_both(r, state, hit, bounce)
+    counts = kernels.launch_counts()
+    assert (counts["shade_tl"], counts["shade"]) == (1, 0)
+    compare_shades(got, want, state, hit)
+    hv = (hit.valid & state.alive).cpu()
+    inst = hit.inst.cpu().long()
+    for i in (0, 1, 2, 4):  # each special instance is shaded
+        assert bool((hv & (inst == i)).any())
+    # a miss resolves at instance 0, a mirror override: allow_emission
+    # set on every miss, with NEE on too
+    miss = ~hit.valid.cpu()
+    assert bool(got[0].allow_emission.cpu()[miss].all())
+    if bounce == 0 and nee:  # an emissive override adds its emission
+        em = hv & (inst == 2) & state.allow_emission.cpu()
+        assert bool(em.any())
+
+
+@pytest.mark.cuda
+def test_two_level_shade_kernel_matches_pytorch_on_a_textured_wave(
+        cuda_renderer):
+    """A textured mesh whose instance 2 overrides its material: the
+    override samples the white fallback texel, the others their texture
+    at the record's UVs."""
+    r = cuda_renderer
+    gen = torch.Generator().manual_seed(19)
+    ds = _textured(r.ds)
+    ds = ds._replace(tex_data=ds.tex_data.to(r.device),
+                     tex_meta=ds.tex_meta.to(r.device))
+    use_records(r, made_up_records("mixed", 61, gen, textured=True), ds=ds,
+                inst_table=made_up_inst_table(gen))
+    assert r.shade_tables.tex_data is not None
+    assert r.shade_tables.inst_table is not None
+    state, hit = made_up_wave(r, N_RAYS, 61, gen)
+    hit = with_instances(hit, gen)
+    compare_shades(*shade_both(r, state, hit, 1), state, hit)
+
+
 def _off_share(a, b):
     """perfbench's accumulation check: the share of channels off by over
     OFF_REL relative (or OFF_ABS)."""
@@ -414,16 +536,18 @@ def _off_share(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["bunny", "cornell"])
+@pytest.mark.parametrize("preset", ["bunny", "cornell", "sponza_small"])
 def test_kernel_renders_match_the_pytorch_shade_with_graphs(cuda_device,
                                                             preset):
     """A render with graphs on through the kernel against the same
     renderer's PyTorch shade: within the benchmark's accumulation limit,
-    every wave of the batches shaded by the kernel."""
-    scene = bunny_standin(subdivisions=3) if preset == "bunny" \
-        else cornell_box()
-    cfg = get_config(preset, width=96, height=64, spp=4, spp_per_batch=2,
-                     max_bounces=2)
+    every wave of the batches shaded by the kernel (its two-level
+    instantiation on sponza_small's two-level accel)."""
+    scene = dict(bunny=lambda: bunny_standin(subdivisions=3),
+                 cornell=cornell_box,
+                 sponza_small=lambda: sponza_standin(8, 3))[preset]()
+    cfg = get_config(preset.split("_")[0], width=96, height=64, spp=4,
+                     spp_per_batch=2, max_bounces=2)
     ds = to_device(scene, device=cuda_device)
     meta = scene_meta(scene)
     accel = build_accel(cfg, ds, meta, scene=scene, device=cuda_device)
@@ -436,9 +560,16 @@ def test_kernel_renders_match_the_pytorch_shade_with_graphs(cuda_device,
         assert r.prewarm(scene.camera, cfg.seed, 0) > 0 and r.graphs
         kernels.reset_launch_counts()
         img = sum(r(scene.camera, cfg.seed, s0)[0] for s0 in (0, 2))
-        out[path] = (img, kernels.launch_counts()["shade"])
-    (img, shaded), (ref, none) = out["cuda"], out["plain"]
-    assert shaded == 2 * (cfg.max_bounces + 1) and none == 0
+        out[path] = (img, kernels.launch_counts())
+    key, other = (("shade_tl", "shade") if preset == "sponza_small"
+                  else ("shade", "shade_tl"))
+    assert (accel.inst_table is not None if preset == "sponza_small"
+            else getattr(accel, "inst_table", None) is None)
+    (img, got), (ref, plain) = out["cuda"], out["plain"]
+    waves = 2 * (cfg.max_bounces + 1)
+    assert (got[key], got.get(other, 0), got.get("shade.plain", 0)) == (
+        waves, 0, 0)
+    assert (plain.get(key, 0), plain["shade.plain"]) == (0, waves)
     assert bool(torch.isfinite(img).all())
     assert _off_share(img, ref) <= OFF_LIMIT
 

@@ -20,6 +20,16 @@
 // one atomicAdd a block after __syncthreads_count: whole numbers, so the
 // sum does not depend on the order.
 //
+// The two-level accel (PairAccelTL) is the kernel's other instantiation
+// (kTwoLevel), chosen at launch by whether an instance table is given;
+// the flat one is the code without it. Its records are object space and
+// shared by a mesh's instances: a thread also reads its hit's instance id
+// and that instance's 96 B row of the (I, 24) table (atrium's 126 rows
+// stay in L1/L2), takes the normals through the row's normal matrix (the
+// geometric one times its det sign) and, where the row overrides the
+// material, its kind, albedo, emission and parameters with no texture, as
+// materials.resolve_hit_packed_tl does.
+//
 // What bounds it on this card: bytes. About 83 B in and 91 B out a ray
 // (state, hit, the next wave, the shadow tuple), and a few hundred f32
 // operations a hit: a 3.84M-ray bunny wave is ~0.67 GB, ~0.2 ms at 3.35
@@ -48,6 +58,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kShadeLanes = 32;  // floats a shade record (bvh.paircluster)
 constexpr int kLightLanes = 16;  // floats a light row (kernels/shade.py)
+constexpr int kInstLanes = 24;   // floats an instance row (bvh.paircluster)
 
 // material kinds (scene/types.py)
 constexpr int kLambert = 0;
@@ -163,6 +174,15 @@ __device__ __forceinline__ V3 eval_brdf(int kind, V3 albedo, float p0,
   return v3(diffuse.x + spec, diffuse.y + spec, diffuse.z + spec);
 }
 
+// materials._mat3_vec: the row-major 3x3 in the floats m[0..8] times x,
+// each row summed left to right
+__device__ __forceinline__ V3 mat3_vec(const float* m, V3 x) {
+  return v3((m[0] * x.x + m[1] * x.y) + m[2] * x.z,
+            (m[3] * x.x + m[4] * x.y) + m[5] * x.z,
+            (m[6] * x.x + m[7] * x.y) + m[8] * x.z);
+}
+
+template <bool kTwoLevel>
 __global__ void __launch_bounds__(kThreads)
 shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
              const float* __restrict__ radiance,
@@ -190,7 +210,9 @@ shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
              uint8_t* __restrict__ allow_out, float* __restrict__ s_org,
              float* __restrict__ s_dir, float* __restrict__ s_tmax,
              float* __restrict__ s_contrib, uint8_t* __restrict__ s_want,
-             double* __restrict__ live_count) {
+             double* __restrict__ live_count,
+             const int32_t* __restrict__ hit_inst,
+             const float* __restrict__ inst_table, int n_inst) {
   const long i = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
   bool next_alive = false;
   if (i < n) {
@@ -210,7 +232,20 @@ shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
         reinterpret_cast<const float4*>(shade_rows) +
         static_cast<long>(slot) * (kShadeLanes / 4);
     const float4 r3 = __ldg(row + 3);  // kind, albedo
-    const int kind = static_cast<int>(r3.x);
+    int kind = static_cast<int>(r3.x);
+    // the hit's instance row, at clamp(inst, 0, I - 1) as the plain
+    // version resolves every ray: a miss's kind is instance 0's override
+    const float4* irow = nullptr;
+    bool over = false;
+    if constexpr (kTwoLevel) {
+      int inst = hit_inst[i];
+      inst = inst < 0 ? 0 : (inst >= n_inst ? n_inst - 1 : inst);
+      irow = reinterpret_cast<const float4*>(inst_table) +
+             static_cast<long>(inst) * (kInstLanes / 4);
+      const float4 i2 = __ldg(irow + 2);  // m22, det sign, override, kind
+      over = i2.z > 0.5f;
+      if (over) kind = static_cast<int>(i2.w);
+    }
     const bool is_mirror = kind == kMirror;
     const bool is_diel = kind == kDielectric;
     const bool specular = is_mirror || is_diel;
@@ -223,27 +258,49 @@ shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
     bool want = false;
 
     if (hv) {
-      // --- resolve (materials.resolve_hit_packed) -------------------------
+      // --- resolve (materials.resolve_hit_packed, _tl) --------------------
       const float4 r0 = __ldg(row + 0), r1 = __ldg(row + 1),
                    r2 = __ldg(row + 2), r4 = __ldg(row + 4),
                    r5 = __ldg(row + 5);
       const float t = hit_t[i], u = hit_u[i], v = hit_v[i];
       const float w = 1.0f - u - v;
-      V3 n_geom = normalize(v3(r0.x, r0.y, r0.z));
-      const V3 sn0 = v3(r0.w, r1.x, r1.y), sn1 = v3(r1.z, r1.w, r2.x),
-               sn2 = v3(r2.y, r2.z, r2.w);
-      V3 n_shade = normalize((w * sn0 + u * sn1) + v * sn2);
+      // the flat instantiation's statements keep this order: moving them
+      // changes its instructions and registers (cuobjdump -sass)
+      V3 n_geom, n_shade;
+      if constexpr (kTwoLevel) {  // object space to world
+        const float4 i0 = __ldg(irow), i1 = __ldg(irow + 1),
+                     i2 = __ldg(irow + 2);
+        const float m[9] = {i0.x, i0.y, i0.z, i0.w, i1.x,
+                            i1.y, i1.z, i1.w, i2.x};
+        n_geom = normalize(mat3_vec(m, v3(r0.x, r0.y, r0.z)) * i2.y);
+        const V3 sn0 = v3(r0.w, r1.x, r1.y), sn1 = v3(r1.z, r1.w, r2.x),
+                 sn2 = v3(r2.y, r2.z, r2.w);
+        n_shade = normalize(mat3_vec(m, (w * sn0 + u * sn1) + v * sn2));
+      } else {
+        n_geom = normalize(v3(r0.x, r0.y, r0.z));
+        const V3 sn0 = v3(r0.w, r1.x, r1.y), sn1 = v3(r1.z, r1.w, r2.x),
+                 sn2 = v3(r2.y, r2.z, r2.w);
+        n_shade = normalize((w * sn0 + u * sn1) + v * sn2);
+      }
       const V3 o = load3(org, i), d = load3(dirn, i);
       const V3 pos = o + t * d;
       const bool front = dot(n_geom, d) < 0.0f;
       n_geom = sel(front, n_geom, -n_geom);
       n_shade = sel(dot(n_shade, n_geom) >= 0.0f, n_shade, -n_shade);
       V3 albedo = v3(r3.y, r3.z, r3.w);
+      if constexpr (kTwoLevel) {  // the override's
+        if (over) {
+          const float4 i3 = __ldg(irow + 3);
+          albedo = v3(i3.x, i3.y, i3.z);
+        }
+      }
       if (n_tex > 0) {  // nearest texel (materials.sample_base_color)
         const float4 r6 = __ldg(row + 6), r7 = __ldg(row + 7);
         const float tu = (w * r5.z + u * r6.x) + v * r6.z;
         const float tv = (w * r5.w + u * r6.y) + v * r6.w;
-        const int tex_id = static_cast<int>(r7.x);
+        int tex_id = static_cast<int>(r7.x);
+        // an override carries no texture: the white fallback texel
+        if constexpr (kTwoLevel) tex_id = over ? -1 : tex_id;
         const int tid = tex_id < 0 ? 0 : (tex_id >= n_tex ? n_tex - 1
                                                            : tex_id);
         const float4 meta = __ldg(reinterpret_cast<const float4*>(tex_meta) +
@@ -258,8 +315,16 @@ shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
                                      : 0L;
         albedo = albedo * load3(tex_data, idx);
       }
-      const V3 emission = v3(r4.x, r4.y, r4.z);
-      const float p0 = r4.w, p1 = r5.x;
+      V3 emission = v3(r4.x, r4.y, r4.z);
+      float p0 = r4.w, p1 = r5.x;
+      if constexpr (kTwoLevel) {
+        if (over) {
+          const float4 i3 = __ldg(irow + 3), i4 = __ldg(irow + 4);
+          emission = v3(i3.w, i4.x, i4.y);
+          p0 = i4.z;
+          p1 = i4.w;
+        }
+      }
       rad = rad + sel(allow_emission[i] != 0, thr * emission,
                       v3(0.0f, 0.0f, 0.0f));
 
@@ -421,7 +486,9 @@ shade_kernel(const float* __restrict__ org, const float* __restrict__ dirn,
 // last (no ray stays alive). The outputs as the inputs; the shadow tuple
 // (s_org, s_dir (n, 3), s_tmax (n,), s_contrib (n, 3) f32, s_want (n,) u8)
 // only with use_nee (else null); live_count one f64 the wave's live rays
-// are added to.
+// are added to. The two-level accel: hit_inst (n,) i32 and inst_table
+// (n_inst, 24) f32 (the records then object space); both null on the
+// flat accel, which launches the flat instantiation.
 extern "C" int tpurt_shade(
     const float* org, const float* dirn, const float* radiance,
     const float* throughput, const uint8_t* alive,
@@ -436,15 +503,19 @@ extern "C" int tpurt_shade(
     float* dirn_out, float* radiance_out, float* throughput_out,
     uint8_t* alive_out, uint8_t* allow_out, float* s_org, float* s_dir,
     float* s_tmax, float* s_contrib, uint8_t* s_want, double* live_count,
+    const int32_t* hit_inst, const float* inst_table, int n_inst,
     void* stream) {
   if (n <= 0) return 0;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  shade_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = inst_table != nullptr ? shade_kernel<true>
+                                      : shade_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       org, dirn, radiance, throughput, alive, allow_emission, pix, sample,
       hit_t, hit_u, hit_v, hit_slot, hit_valid, shade_rows, n_slots, lights,
       num_lights, tex_data, tex_meta, n_tex, bg_r, bg_g, bg_b, seed, sample0,
       base, bounce, last, use_nee, eps_ray, shadow_scale, n, org_out,
       dirn_out, radiance_out, throughput_out, alive_out, allow_out, s_org,
-      s_dir, s_tmax, s_contrib, s_want, live_count);
+      s_dir, s_tmax, s_contrib, s_want, live_count, hit_inst, inst_table,
+      n_inst);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,8 @@ first use.
 Every CUDA launcher goes through ``launch``, which counts the launch
 under its key here: ``entries`` (K2), ``exact_mask`` (K3), K1's and K4's
 modes (``tileloop…``, ``tilegrid…``), ``pair`` (K6), ``packet`` (K5),
-``shade`` (S1) and the ray sort's ``raysort`` (its keys, then CUB's
+``shade`` and ``shade_tl`` (S1 on the flat and the two-level accel) and
+the ray sort's ``raysort`` (its keys, then CUB's
 sort), ``raygather`` and ``rayrestore``; ``KERNELS`` names the device
 kernel behind each key (the sort's own kernels are CUB's). The
 tile intersector counts its waves here too, by tile mode
@@ -51,11 +52,12 @@ KERNELS = {"entries": "slab_kernel<true>", "exact_mask": "slab_kernel<false>",
            **{f"tilegrid{tl}{mode}": "tileloop_kernel" for tl in ("", "_tl")
               for mode in ("", "_allpairs")},
            "pair": "pair_kernel", "packet": "packet_kernel",
-           "shade": "shade_kernel", "raysort": "raysort_keys_kernel",
+           "shade": "shade_kernel<false>", "shade_tl": "shade_kernel<true>",
+           "raysort": "raysort_keys_kernel",
            "raygather": "raygather_kernel",
            "rayrestore": "rayrestore_kernel"}
-# the launch keys that ``launch_counts`` always holds (K1's and K4's modes
-# and the ray sort's appear once launched)
+# the launch keys that ``launch_counts`` always holds (K1's and K4's modes,
+# S1's two-level instantiation and the ray sort's appear once launched)
 FIXED = ("entries", "exact_mask", "pair", "packet", "shade")
 # counted beside the launches where the PyTorch code does a kernel's work:
 # a wave that the staged loop's PyTorch shade shades (render/staged.py)

@@ -51,7 +51,7 @@ SIGNATURES = {
     "tpurt_packet": [_p, _i, _p, _p, _p, _p, ctypes.c_long, _i] + [_p] * 6,
     "tpurt_shade": ([_p] * 14 + [_i, _p, _i, _p, _p, _i, _f, _f, _f, _p,
                                  _p, _p, _i, _i, _i, _f, _f, ctypes.c_long]
-                    + [_p] * 13),
+                    + [_p] * 14 + [_i, _p]),
     "tpurt_raysort_temp_bytes": [_i, ctypes.POINTER(ctypes.c_size_t)],
     "tpurt_raysort": [_p] * 5 + [_i] + [_p] * 5 + [ctypes.c_size_t, _p],
     "tpurt_raygather": [_p] * 4 + [_i, _i] + [_p] * 5,

@@ -7,12 +7,14 @@ plain version is ``StagedRenderer._shade`` (``render/staged.py``), the
 materials and ``core.prng`` code the staged loop runs on the CPU and on
 every path the kernel does not take. ``shade_path`` is the rule, decided
 when a renderer is built, from what the renderer can observe: the kernel
-resolves the world-space shade records of a flat pair-cluster accel
-(``PairAccel.shade_rows``) with the nearest texel, so it takes a CUDA
-device, records without an instance table (not the two-level accel, not
-the packet BVH's per-field resolve), no bilinear textures, and a shading
-mode that shades (not flat). ``shade_tables`` packs the scene's side of
-the kernel's arguments once a renderer; ``shade_cuda`` launches it.
+resolves a pair-cluster accel's shade records with the nearest texel, so
+it takes a CUDA device, shade records (not the packet BVH's per-field
+resolve), no bilinear textures, and a shading mode that shades (not
+flat). The flat accel's records are world space (``PairAccel``); the
+two-level accel's are object space beside an instance table
+(``PairAccelTL``), which the kernel's two-level instantiation reads
+(launch key ``shade_tl``). ``shade_tables`` packs the scene's side of the
+kernel's arguments once a renderer; ``shade_cuda`` launches it.
 """
 
 from __future__ import annotations
@@ -36,9 +38,6 @@ def shade_path(ds, accel, config, device) -> tuple:
     if getattr(accel, "shade_rows", None) is None:
         return "plain", ("no shade records: the packet BVH's hits resolve "
                          "per field")
-    if getattr(accel, "inst_table", None) is not None:
-        return "plain", ("a two-level accel: object-space records and an "
-                         "instance table")
     if config.texture_filter == "bilinear" and ds.tex_data.shape[0] > 1:
         return "plain", "bilinear textures: four texels a hit"
     if torch.device(device).type != "cuda":
@@ -49,12 +48,15 @@ def shade_path(ds, accel, config, device) -> tuple:
 class ShadeTables(NamedTuple):
     """The scene's side of the kernel's arguments."""
 
-    shade_rows: torch.Tensor  # (S, 32) f32 world-space shade records
+    shade_rows: torch.Tensor  # (S, 32) f32 shade records
     lights: torch.Tensor  # (L, LIGHT_LANES) f32
     num_lights: int  # ds.num_lights (the light rows past it are padding)
     tex_data: Optional[torch.Tensor]  # (P, 3) f32, None: untextured
     tex_meta: Optional[torch.Tensor]  # (Ntex, 4) f32, None: untextured
     background: tuple  # (3,) floats
+    # (I, 24) f32 instance rows of the two-level accel (its records are
+    # object space), None: the flat accel
+    inst_table: Optional[torch.Tensor] = None
 
 
 def shade_tables(ds, accel) -> ShadeTables:
@@ -71,6 +73,7 @@ def shade_tables(ds, accel) -> ShadeTables:
     lights[:, 9:12] = ds.light_emission
     lights[:, 12] = ds.light_area
     textured = ds.tex_data.shape[0] > 1
+    inst_table = getattr(accel, "inst_table", None)
     return ShadeTables(
         shade_rows=accel.shade_rows.contiguous(),
         lights=lights,
@@ -78,6 +81,7 @@ def shade_tables(ds, accel) -> ShadeTables:
         tex_data=ds.tex_data.contiguous() if textured else None,
         tex_meta=ds.tex_meta.contiguous() if textured else None,
         background=tuple(float(c) for c in ds.background.cpu()),
+        inst_table=None if inst_table is None else inst_table.contiguous(),
     )
 
 
@@ -90,7 +94,10 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
     an (N,) int64 stream base (a PixelSampler's) in their place, or None.
     Returns (the next wave: ``state`` with its fields replaced and the
     live count added to its counters at 4 + bounce; with ``use_nee`` the
-    shadow tuple (org, dir, tmax, contrib, want), else None)."""
+    shadow tuple (org, dir, tmax, contrib, want), else None). With an
+    instance table the two-level instantiation shades the wave from the
+    hit's instance (launch key ``shade_tl``), else the flat one
+    (``shade``)."""
     dev = state.org.device
     if dev.type != "cuda":
         raise ValueError(f"shade_cuda needs CUDA tensors, got {dev}")
@@ -129,8 +136,15 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
         _check("tex_data", tables.tex_data, f32,
                (tables.tex_data.shape[0], 3), dev)
         _check("tex_meta", tables.tex_meta, f32, (n_tex, 4), dev)
+    key, inst, n_inst = "shade", None, 0
+    if tables.inst_table is not None:
+        key, inst = "shade_tl", c(hit.inst.to(torch.int32))
+        n_inst = tables.inst_table.shape[0]
+        _check("inst", inst, torch.int32, (n,), dev)
+        _check("inst_table", tables.inst_table, f32, (n_inst, 24), dev)
     for name, x in (("shade_rows", tables.shade_rows),
-                    ("lights", tables.lights), ("tex_meta", tables.tex_meta)):
+                    ("lights", tables.lights), ("tex_meta", tables.tex_meta),
+                    ("inst_table", tables.inst_table)):
         if x is not None and x.data_ptr() % 16:  # read as float4 rows
             raise ValueError(f"{name}: not 16-byte aligned")
     rays = state.rays.clone()
@@ -145,7 +159,7 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
                empty3(), flag()) if use_nee else None)
     ptr = lambda x: None if x is None else x.data_ptr()
     kernels.launch(
-        "shade", dev,
+        key, dev,
         *(x.data_ptr() for x in (org, dirn, rad, thr, state.alive,
                                  state.allow_emission, state.pix,
                                  state.sample, t, u, v, slot, hit.valid,
@@ -156,7 +170,8 @@ def shade_cuda(tables: ShadeTables, state, hit, *, bounce: int,
         bounce, int(bounce >= max_bounces), int(use_nee), EPS_RAY,
         1.0 - shadow_eps, n, *(x.data_ptr() for x in out),
         *(ptr(x) for x in (shadow or (None,) * 5)),
-        rays[4 + bounce:].data_ptr(), work=n > 0)
+        rays[4 + bounce:].data_ptr(), ptr(inst), ptr(tables.inst_table),
+        n_inst, work=n > 0)
     org, dirn, rad, thr, alive, allow = out
     return state._replace(org=org, dirn=dirn, radiance=rad, throughput=thr,
                           alive=alive, allow_emission=allow,

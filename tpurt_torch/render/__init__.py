@@ -269,8 +269,8 @@ def render_scene(
     uncapped with a warning (stats ``rerenders`` counts them). Under ``TPURT_AUTOTUNE_WRITE=1`` an uncapped
     render records its live and want counts (``autotune.record``).
     Stats ``shade_waves_cuda``: the waves the staged loop's shade kernel
-    shaded in the call (0 on the PyTorch shade: ``StagedRenderer``'s
-    ``shade_path``).
+    shaded in the call, flat and two-level (0 on the PyTorch shade:
+    ``StagedRenderer``'s ``shade_path``).
 
     ``readback_stats=False`` keeps the ray counters on the device: the
     stats then carry them as ``counts_device`` (the layout of the staged
@@ -321,15 +321,16 @@ def _render_scene(config, scene, camera, state, verbose, readback_stats,
     with profiling.span("scene_context"):
         ctx = _scene_context(config, scene, device, mesh)
     retries = rerenders = 0
-    shaded = kernels.counts().get("shade", 0)
+    s1_waves = lambda: sum(kernels.counts().get(k, 0)
+                           for k in ("shade", "shade_tl"))
+    shaded = s1_waves()
     while True:
         out_state, stats = _render_scene_once(config, ctx, camera, state,
                                               verbose, device,
                                               readback_stats, mesh)
         stats["budget_retries"] = retries
         stats["rerenders"] = rerenders
-        stats["shade_waves_cuda"] = (kernels.counts().get("shade", 0)
-                                     - shaded)
+        stats["shade_waves_cuda"] = s1_waves() - shaded
         if (not config.live_caps
                 and os.environ.get("TPURT_AUTOTUNE_WRITE") == "1"):
             autotune.record(config, stats)

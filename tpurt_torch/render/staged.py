@@ -71,8 +71,8 @@ libcuda holds for it.
 The shade of a wave (``shade``) is one hand-written CUDA kernel
 (``kernels/shade.py``, ``csrc/shade.cu``) where the renderer's accel,
 textures, shading mode and device allow it (``shade_path``), and
-``_shade``'s PyTorch code elsewhere: the CPU, the two-level accel, the
-packet BVH, bilinear textures. The kernel hashes each ray's stream from
+``_shade``'s PyTorch code elsewhere: the CPU, the packet BVH, bilinear
+textures. The kernel hashes each ray's stream from
 the input buffers and the ray's own sample and pixel, so the loops
 share it and a replay reads the batch's seed.
 
@@ -420,9 +420,9 @@ class StagedRenderer:
         PixelSampler, or None for the batch's own streams (the input
         buffers' seed and first sample, each ray's sample and pixel).
         On the ``shade_path`` "cuda" one kernel shades the wave and
-        hashes the streams itself (launch key ``shade``); else the
-        PyTorch code does, counted as ``shade.plain`` beside the
-        launches."""
+        hashes the streams itself (launch key ``shade``, ``shade_tl`` on
+        the two-level accel); else the PyTorch code does, counted as
+        ``shade.plain`` beside the launches."""
         with profiling.step("shade"):
             if self.shade_path == "cuda":
                 c = self.config
